@@ -1,0 +1,269 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port (`privacy_auction_tpu_torch`) and nothing of the JAX
+package, in six phases; any failure raises and the exit code is non-zero:
+
+1. the card's name and power limit (nvidia-smi);
+2. builds the four EC ladder kernels from `privacy_auction_tpu_torch/csrc/`
+   with nvcc (sm_90a) into `build/cuda_ec/`, with ptxas' register and
+   spill report;
+3. the kernel validator (edge lanes against the host oracle), then each
+   kernel at 4096 lanes against its plain PyTorch version on the card and
+   sampled lanes against the host oracle;
+4. verified SEAL auctions at 20x32 and 128x32 bidders x bits from a seed:
+   each must verify and find the plaintext maximum, and each kernel's
+   launch count must rise during each auction;
+5. one tampered PoKDLog among honest ones is rejected on the card;
+6. per kernel, at a shape the 128x32 auction gives it: the kernel's time
+   (CUDA events), the plain version's time, both outputs compared, and the
+   bound from the 32-bit integer multiplies it performs.
+
+Prints a `kernels` JSON line, the nvidia-smi line, and last the line
+{"ok": true, "device": {...}}.  Exits non-zero, printing no result, when no
+CUDA device is available or the package is missing.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+import subprocess
+import sys
+import time
+
+DEVICE = "cuda"
+SEED = 20261016
+AUCTIONS = ((20, 32), (128, 32))
+CHECK_LANES = 4096
+SAMPLED = 8
+# Peak 32-bit integer multiply rate of an H100 SXM: 64 results per clock per
+# SM for 32-bit integer multiply(-add) at compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput table) x 132 SMs x
+# 1.98 GHz (the boost clock behind the published 67 TFLOP/s fp32 peak).
+INT_MUL_RATE = 64 * 132 * 1.98e9
+HBM_RATE = 3.35e12   # bytes/s, NVIDIA H100 SXM data sheet
+SOURCE = "privacy_auction_tpu_torch/csrc/ec_ladders.cu"
+REPLACES = {
+    "mul_comb": "privacy_auction_tpu/ops/pallas_ec.py:538",
+    "dual_mul": "privacy_auction_tpu/ops/pallas_ec.py:366",
+    "quad_mul": "privacy_auction_tpu/ops/pallas_ec.py:404",
+    "base_mul_add_glv": "privacy_auction_tpu/ops/pallas_ec.py:436",
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device available")
+    from privacy_auction_tpu_torch.curves import GLV_WINDOWS, SECP256K1 as C
+    from privacy_auction_tpu_torch.nizk import PoKDLog
+    from privacy_auction_tpu_torch.ops import cuda_ec, ec
+    from privacy_auction_tpu_torch.ops import field as F
+    from privacy_auction_tpu_torch.ops.validate import validate_kernels
+    from privacy_auction_tpu_torch.protocols import seal
+
+    dev = torch.device(DEVICE, 0)
+    host = C.host
+    t_start = time.perf_counter()
+
+    # ---- 1. the card --------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # ---- 2. build -----------------------------------------------------------
+    b = cuda_ec.build()
+    built = ("loaded an earlier build" if b.seconds is None
+             else f"nvcc {b.seconds:.1f} s")
+    log(f"[build] {built} -> {b.path}")
+    entry = None
+    for line in b.ptxas_log.splitlines():
+        if "Function properties for" in line or "Compiling entry" in line:
+            entry = next((k for k in cuda_ec.KERNELS if f"{k}_kernel" in line),
+                         None)
+        elif entry and ("stack frame" in line or "Used" in line):
+            log(f"[ptxas] {entry}_kernel: {line.split(':', 1)[-1].strip()}")
+
+    # ---- 3. validator and 4096-lane parity ------------------------------------
+    validate_kernels(C, lanes=8, seed=SEED, device=dev)
+    log("[validate] edge lanes (k = 0, 1, n-1; infinity input) match host_curve")
+    cuda_ec.reset_launches()
+
+    rng = random.Random(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+
+    def scalars(lanes, bits=256):
+        ks = [rng.randrange(1 << bits) % host.n for _ in range(lanes)]
+        return ks, torch.as_tensor(F.ints_to_limbs(ks)).to(dev)
+
+    def points(lanes):
+        ks, k = scalars(lanes)
+        return ks, ec.mul_base(C, k)
+
+    def kernel_inputs(name, lanes):
+        """(kernel call, plain call, host oracle for lane i) on random data;
+        the GLV kernels get 132-bit scalars, as the split gives them."""
+        g0 = C.tensor("g0_tables", dev)
+        if name == "mul_comb":
+            ks, k = scalars(lanes)
+            table = C.tensor("comb_table", dev)
+            return ((lambda: cuda_ec.mul_comb(table, k)),
+                    (lambda: ec.mul_comb_plain(C, table, k)),
+                    lambda i: host.mul(ks[i], host.g))
+        nsrc = {"dual_mul": 2, "quad_mul": 4, "base_mul_add_glv": 2}[name]
+        srcs = [points(lanes) + scalars(lanes, 132) for _ in range(nsrc)]
+        args = [t for a, P, s, k in srcs for t in (P, k)]
+        if name == "dual_mul":
+            return ((lambda: cuda_ec.dual_mul(*args, GLV_WINDOWS)),
+                    (lambda: ec.dual_mul_windows_plain(C, *args, GLV_WINDOWS)),
+                    lambda i: host.mul(sum(a[i] * s[i] for a, _, s, _ in srcs),
+                                       host.g))
+        if name == "quad_mul":
+            return ((lambda: cuda_ec.quad_mul(*args, GLV_WINDOWS)),
+                    (lambda: ec.quad_mul_windows_plain(C, *args, GLV_WINDOWS)),
+                    lambda i: host.mul(sum(a[i] * s[i] for a, _, s, _ in srcs),
+                                       host.g))
+        ss1, s1 = scalars(lanes, 132)
+        ss2, s2 = scalars(lanes, 132)
+        flags = torch.randint(0, 2, (lanes, 2), generator=gen).to(dev)
+        fl = flags.cpu().tolist()
+        lam = C.glv.lam
+
+        def want(i):
+            e = ((-1) ** fl[i][0] * ss1[i] + (-1) ** fl[i][1] * ss2[i] * lam
+                 + sum(a[i] * s[i] for a, _, s, _ in srcs))
+            return host.mul(e % host.n, host.g)
+        return ((lambda: cuda_ec.base_mul_add_glv(*args, s1, s2, flags, g0,
+                                                  GLV_WINDOWS)),
+                (lambda: ec.base_mul_add_glv_plain(C, *args, s1, s2, flags,
+                                                   GLV_WINDOWS)),
+                want)
+
+    for name in cuda_ec.KERNELS:
+        run_k, run_p, want = kernel_inputs(name, CHECK_LANES)
+        got = run_k()
+        ref = run_p()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            bad = int((got != ref).any(-1).any(-1).sum())
+            raise AssertionError(f"{name}: {bad} of {CHECK_LANES} lanes differ "
+                                 f"from the plain version")
+        for i in rng.sample(range(CHECK_LANES), SAMPLED):
+            if ec.decode_host_point(C, got[i]) != want(i):
+                raise AssertionError(f"{name}: lane {i} disagrees with host_curve")
+        log(f"[parity] {name}: {CHECK_LANES} lanes equal the plain version, "
+            f"{SAMPLED} sampled lanes equal host_curve")
+
+    # ---- 4. verified auctions (the main path) -----------------------------------
+    auction_launches = {}
+    for n, c in AUCTIONS:
+        bids = [rng.randrange(1 << c) for _ in range(n)]
+        times = {}
+        cuda_ec.reset_launches()
+        t0 = time.perf_counter()
+        res = seal.run_auction(C, bids, c, verify=True,
+                               generator=torch.Generator().manual_seed(SEED + n),
+                               device=dev, times=times)
+        wall = time.perf_counter() - t0
+        counts = dict(cuda_ec.launches)
+        if not res.verified or res.max_bid != max(bids):
+            raise AssertionError(f"SEAL {n}x{c}: verified={res.verified} "
+                                 f"max_bid={res.max_bid} != {max(bids)}")
+        idle = [k for k, v in counts.items() if v == 0]
+        if idle:
+            raise AssertionError(f"SEAL {n}x{c}: kernels {idle} never launched")
+        auction_launches[(n, c)] = counts
+        log(f"[seal {n}x{c}] verified, max_bid={res.max_bid}, wall {wall:.3f} s; "
+            "phases " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()))
+        log(f"[seal {n}x{c}] launches {json.dumps(counts)}")
+
+    # ---- 5. a tampered PoKDLog is rejected ----------------------------------------
+    n_t = 8
+    ids = torch.arange(n_t, device=dev)
+    pub, _ = seal.round_one_batch(C, torch.Generator().manual_seed(SEED), n_t, 1,
+                                  ids)
+    ok = seal.verify_round_one_batch(C, pub, ids)
+    rho = pub.pok_x.rho.clone()
+    rho[0, 3, 0] ^= 1
+    bad = seal.verify_round_one_batch(
+        C, pub._replace(pok_x=PoKDLog(pub.pok_x.eps, rho)), ids)
+    expect = torch.ones_like(bad)
+    expect[0, 3] = False
+    if not bool(ok.all()) or not torch.equal(bad, expect):
+        raise AssertionError(f"tamper check: honest {ok.tolist()}, "
+                             f"tampered {bad.tolist()}")
+    log("[tamper] the PoKDLog with a flipped rho limb is rejected, its "
+        f"{n_t - 1} neighbours pass")
+
+    # ---- 6. kernel times at the 128x32 auction's shapes -----------------------------
+    n, c = AUCTIONS[-1]
+    shapes = {
+        "mul_comb": 4 * c * n,       # round-1 keys and nonce commitments
+        "dual_mul": 2 * c * n,       # Y^x and R^x for every step
+        "quad_mul": 16 * n,          # one Stage2 proof pass
+        "base_mul_add_glv": 2 * c * n,   # round-1 PoKDLog verification
+    }
+    # bytes each input is read once and the output written once: int64
+    # points 384 B, scalars 128 B, sign flags 16 B; the constant tables once
+    bytes_per_lane = {"mul_comb": 128 + 384, "dual_mul": 2 * 512 + 384,
+                      "quad_mul": 4 * 512 + 384,
+                      "base_mul_add_glv": 2 * 512 + 2 * 128 + 16 + 384}
+    table_bytes = {"mul_comb": 64 * 16 * 384, "base_mul_add_glv": 2 * 16 * 384}
+    report = []
+    for name in cuda_ec.KERNELS:
+        lanes = shapes[name]
+        run_k, run_p, _ = kernel_inputs(name, lanes)
+        run_k()
+        torch.cuda.synchronize()
+        reps = 5
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            got = run_k()
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1) / reps
+        e0.record()
+        ref = run_p()
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        err = int((got - ref).abs().max())
+        if err:
+            raise AssertionError(f"{name}: kernel and plain differ at {lanes} lanes")
+        ops_s = cuda_ec.int_muls(name, lanes, GLV_WINDOWS) / INT_MUL_RATE
+        bytes_s = (lanes * bytes_per_lane[name]
+                   + table_bytes.get(name, 0)) / HBM_RATE
+        report.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name],
+            "launches": auction_launches[AUCTIONS[0]][name],
+            f"launches_{n}x{c}": auction_launches[AUCTIONS[-1]][name],
+            "lanes": lanes, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(ops_s, bytes_s),
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "library_ms": None,
+        })
+        log(f"[time] {name} at {lanes} lanes: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {1e3 * max(ops_s, bytes_s):.4f} ms")
+
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": report}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

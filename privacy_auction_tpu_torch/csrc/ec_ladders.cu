@@ -1,0 +1,209 @@
+// The four EC ladder kernels of the SEAL auction's path, for Hopper (sm_90a).
+//
+// Built by privacy_auction_tpu_torch/ops/cuda_ec.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// and bound through ctypes: each extern "C" launcher below takes raw device
+// pointers and a CUDA stream, launches on that stream and returns
+// cudaGetLastError().
+//
+// Shared design (simple and right first):
+//  * one thread per lane, 128 threads per block, a grid over the lanes with
+//    the ragged edge masked; nothing is padded;
+//  * inputs are the port's int64 16-bit limbs ((n, 3, 16) points, (n, 16)
+//    scalars), repacked to 8 x 32-bit words on load; 4-bit window digits are
+//    read from the scalar limbs in the kernel, least significant first;
+//  * per-lane window tables [inf, P, ..., 15P] live in local memory
+//    (1.5 KiB each); lookups by secret digit read all 16 entries and mask;
+//  * constant tables (comb table, window-0 tables of G and phi(G)) come as
+//    32-bit words in device memory; every lane reads the same entries, which
+//    replaces the TPU's exact one-hot f32 MXU matmuls.
+//
+// What bounds them: 32-bit integer multiplies.  One field mul is an 8x8
+// schoolbook of 64 wide (32x32->64) products plus 9 for the fold by
+// 2^32 + 977; cuda_ec.int_muls() counts, per lane from the ladder shape,
+// what the formulas need (squarings at 36 products, muls by 2 and 8 as
+// shifts), which is less than these kernels do.
+// Latency, not throughput, limits this first version: the auction gives a
+// kernel a few thousand lanes, tens of blocks on 132 SMs, and each thread
+// runs a long dependent chain with its tables spilled to local memory.
+//
+// What the simple design leaves on the table: PTX carry chains
+// (mad.lo.cc/madc.hi) in place of 64-bit accumulators, a shared Montgomery
+// or Karatsuba field mul, tables in shared memory, several threads per lane
+// (limb-parallel arithmetic) to fill the card at small lane counts, and
+// signed-digit windows (8 entries per table instead of 16).
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "ec_device.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+using pa::Pt;
+
+// ---------------------------------------------------------------------------
+// mul_comb: k*B over a (64, 16, 3, 8)-word comb table of B.
+// Replaces _mul_base_kernel (privacy_auction_tpu/ops/pallas_ec.py:538).
+// Per lane: 64 complete adds (64 * 12 field muls).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+mul_comb_kernel(const int64_t* __restrict__ k, const uint32_t* __restrict__ table,
+                int64_t* __restrict__ out, int n) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= n) return;
+  const int64_t* kl = k + (size_t)lane * 16;
+  Pt acc = pa::pt_infinity();
+#pragma unroll 1
+  for (int w = 0; w < 64; ++w) {
+    const uint32_t d = pa::scalar_digit(kl, w);
+    const Pt* tw = reinterpret_cast<const Pt*>(table) + w * 16;
+    acc = pa::pt_add(acc, pa::pt_select16(tw, d));
+  }
+  pa::pt_store_limbs(out + (size_t)lane * 48, acc);
+}
+
+// ---------------------------------------------------------------------------
+// Straus ladder: sum of S k_i*P_i over `windows` 4-bit windows, one shared
+// doubling chain.  Per lane: S * 14 table adds + windows * (4 doublings +
+// S adds); S tables of 16 entries (1.5 KiB each) in local memory.
+//  * dual_mul (S = 2): k1*P1 + k2*P2, at 33 windows for the GLV halves of
+//    scalar_mul.  Replaces _dual_mul_kernel
+//    (privacy_auction_tpu/ops/pallas_ec.py:366).
+//  * quad_mul (S = 4): four GLV half-scalars; 6 KiB of tables.  Replaces
+//    _quad_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:404).
+// ---------------------------------------------------------------------------
+template <int S>
+struct StrausArgs {
+  const int64_t* P[S];
+  const int64_t* k[S];
+  int64_t* out;
+  int n;
+  int windows;
+};
+
+template <int S>
+__device__ __forceinline__ void straus(const StrausArgs<S>& a) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= a.n) return;
+  Pt T[S][16];
+#pragma unroll 1
+  for (int s = 0; s < S; ++s)
+    pa::pt_fill_table(T[s], pa::pt_load_limbs(a.P[s] + (size_t)lane * 48));
+  Pt acc = pa::pt_infinity();
+#pragma unroll 1
+  for (int w = a.windows - 1; w >= 0; --w) {
+    acc = pa::pt_dbl4(acc);
+#pragma unroll 1
+    for (int s = 0; s < S; ++s)
+      acc = pa::pt_add(acc, pa::pt_select16(
+                                T[s], pa::scalar_digit(a.k[s] + (size_t)lane * 16, w)));
+  }
+  pa::pt_store_limbs(a.out + (size_t)lane * 48, acc);
+}
+
+__global__ void __launch_bounds__(kThreads) dual_mul_kernel(StrausArgs<2> a) {
+  straus(a);
+}
+
+__global__ void __launch_bounds__(kThreads) quad_mul_kernel(StrausArgs<4> a) {
+  straus(a);
+}
+
+// ---------------------------------------------------------------------------
+// base_mul_add_glv: g^s * P^t with both scalars GLV-split.
+// Replaces _base_mul_add_glv_kernel (privacy_auction_tpu/ops/pallas_ec.py:436).
+// P1/P2 are the sign-adjusted +-P / +-phi(P) with magnitudes t1/t2; s1/s2
+// the magnitudes of s's halves with signs in sflags (n, 2).  The generator
+// side reads the constant window-0 tables of G and phi(G) (affine, Z = 1)
+// and negates the fetched Y where the lane's sign flag is set: any (0:y:0)
+// is a valid infinity for the complete formulas.
+// Per lane: 28 table adds + windows * (4 doublings + 4 adds).
+// ---------------------------------------------------------------------------
+struct BaseArgs {
+  const int64_t* P1;
+  const int64_t* t1;
+  const int64_t* P2;
+  const int64_t* t2;
+  const int64_t* s1;
+  const int64_t* s2;
+  const int64_t* sflags;
+  const uint32_t* g0;   // (2, 16, 3, 8) words: d*G and d*phi(G)
+  int64_t* out;
+  int n;
+  int windows;
+};
+
+__device__ __forceinline__ Pt signed_entry(const uint32_t* g0, uint32_t d,
+                                           int64_t negate) {
+  Pt e = pa::pt_select16(reinterpret_cast<const Pt*>(g0), d);
+  e.y = pa::fe_select(0u - (uint32_t)(negate != 0), pa::fe_neg(e.y), e.y);
+  return e;
+}
+
+__global__ void __launch_bounds__(kThreads) base_mul_add_glv_kernel(BaseArgs a) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= a.n) return;
+  Pt T1[16], T2[16];
+  pa::pt_fill_table(T1, pa::pt_load_limbs(a.P1 + (size_t)lane * 48));
+  pa::pt_fill_table(T2, pa::pt_load_limbs(a.P2 + (size_t)lane * 48));
+  const int64_t* t1l = a.t1 + (size_t)lane * 16;
+  const int64_t* t2l = a.t2 + (size_t)lane * 16;
+  const int64_t* s1l = a.s1 + (size_t)lane * 16;
+  const int64_t* s2l = a.s2 + (size_t)lane * 16;
+  const int64_t neg1 = a.sflags[(size_t)lane * 2];
+  const int64_t neg2 = a.sflags[(size_t)lane * 2 + 1];
+  Pt acc = pa::pt_infinity();
+#pragma unroll 1
+  for (int w = a.windows - 1; w >= 0; --w) {
+    acc = pa::pt_dbl4(acc);
+    acc = pa::pt_add(acc, signed_entry(a.g0, pa::scalar_digit(s1l, w), neg1));
+    acc = pa::pt_add(acc, signed_entry(a.g0 + 16 * 24, pa::scalar_digit(s2l, w), neg2));
+    acc = pa::pt_add(acc, pa::pt_select16(T1, pa::scalar_digit(t1l, w)));
+    acc = pa::pt_add(acc, pa::pt_select16(T2, pa::scalar_digit(t2l, w)));
+  }
+  pa::pt_store_limbs(a.out + (size_t)lane * 48, acc);
+}
+
+inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+extern "C" {
+
+int pa_mul_comb(const int64_t* k, const uint32_t* table, int64_t* out, int n,
+                void* stream) {
+  if (n > 0)
+    mul_comb_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(k, table, out, n);
+  return (int)cudaGetLastError();
+}
+
+int pa_dual_mul(const int64_t* P1, const int64_t* k1, const int64_t* P2,
+                const int64_t* k2, int64_t* out, int n, int windows, void* stream) {
+  StrausArgs<2> a{{P1, P2}, {k1, k2}, out, n, windows};
+  if (n > 0) dual_mul_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int pa_quad_mul(const int64_t* P1, const int64_t* k1, const int64_t* P2,
+                const int64_t* k2, const int64_t* P3, const int64_t* k3,
+                const int64_t* P4, const int64_t* k4, int64_t* out, int n,
+                int windows, void* stream) {
+  StrausArgs<4> a{{P1, P2, P3, P4}, {k1, k2, k3, k4}, out, n, windows};
+  if (n > 0) quad_mul_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int pa_base_mul_add_glv(const int64_t* P1, const int64_t* t1, const int64_t* P2,
+                        const int64_t* t2, const int64_t* s1, const int64_t* s2,
+                        const int64_t* sflags, const uint32_t* g0, int64_t* out,
+                        int n, int windows, void* stream) {
+  BaseArgs a{P1, t1, P2, t2, s1, s2, sflags, g0, out, n, windows};
+  if (n > 0)
+    base_mul_add_glv_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,286 @@
+"""Wrappers of the hand-written CUDA ladder kernels (`csrc/ec_ladders.cu`).
+
+The kernels are built with `nvcc` for sm_90a at first use into
+`build/cuda_ec/` of the checkout, and bound through ctypes: pointers and
+the stream go as `c_void_p`, counts as `c_int`.  Each wrapper checks
+device, dtype and shapes, makes its inputs contiguous, allocates the output
+with `torch.empty`, launches on the current stream, raises if the launcher
+returns a CUDA error, and adds one to its launch count.  There is no
+fallback: a CPU tensor, a missing `nvcc` or a failed build raises.
+
+| wrapper            | kernel                  | TPU kernel it replaces                  |
+| mul_comb           | mul_comb_kernel         | _mul_base_kernel (pallas_ec.py:538)     |
+| dual_mul           | dual_mul_kernel         | _dual_mul_kernel (pallas_ec.py:366)     |
+| quad_mul           | quad_mul_kernel         | _quad_mul_kernel (pallas_ec.py:404)     |
+| base_mul_add_glv   | base_mul_add_glv_kernel | _base_mul_add_glv_kernel (pallas_ec.py:436) |
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+from ..curves import COMB_SIZE, COMB_WINDOWS
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("ec_ladders.cu", "ec_device.cuh")
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cuda_ec"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv")
+launches = dict.fromkeys(KERNELS, 0)
+
+
+class Build:
+    """The loaded library and what its build printed; `seconds` is None when
+    an earlier build of the same sources and flags was loaded."""
+
+    def __init__(self, lib: ctypes.CDLL, path: pathlib.Path,
+                 seconds: float | None, ptxas_log: str):
+        self.lib = lib
+        self.path = path
+        self.seconds = seconds
+        self.ptxas_log = ptxas_log
+
+
+_build: Build | None = None
+
+
+def reset_launches():
+    for name in KERNELS:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA ladder kernels cannot be built")
+
+
+def build() -> Build:
+    """Load the kernel library, compiling it first when no build of these
+    sources and flags exists.  The build directory is named by their hash;
+    a new build is written under temporary names and renamed into place, so
+    a process never overwrites a library another one has loaded."""
+    global _build
+    if _build is not None:
+        return _build
+    digest = hashlib.sha256()
+    for name in SOURCES:
+        digest.update((CSRC / name).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    lib_path = out_dir / "libpa_ec.so"
+    log_path = out_dir / "ptxas.log"
+    seconds = None
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp_lib = out_dir / f"libpa_ec.{os.getpid()}.so"
+        tmp_log = out_dir / f"ptxas.{os.getpid()}.log"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib), str(CSRC / "ec_ladders.cu")],
+            capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        tmp_log.write_text(proc.stderr)
+        os.replace(tmp_log, log_path)
+        os.replace(tmp_lib, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.pa_mul_comb.argtypes = [P, P, P, I, P]
+    lib.pa_dual_mul.argtypes = [P, P, P, P, P, I, I, P]
+    lib.pa_quad_mul.argtypes = [P] * 9 + [I, I, P]
+    lib.pa_base_mul_add_glv.argtypes = [P] * 9 + [I, I, P]
+    for fn in (lib.pa_mul_comb, lib.pa_dual_mul, lib.pa_quad_mul,
+               lib.pa_base_mul_add_glv):
+        fn.restype = I
+    _build = Build(lib, lib_path, seconds, log_path.read_text())
+    return _build
+
+
+# --------------------------------------------------------------------------
+# argument checks and layout
+# --------------------------------------------------------------------------
+
+def _lanes(name: str, tensors, tails):
+    """Check that every tensor is int64 on one CUDA device with the given
+    trailing shape and one common batch shape; return them flattened to
+    contiguous (N, *tail) and the batch shape."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel needs CUDA tensors, got {dev}")
+    batch = None
+    flat = []
+    for t, tail in zip(tensors, tails):
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.int64:
+            raise TypeError(f"{name}: expected int64 limbs, got {t.dtype}")
+        if t.dim() < len(tail) or tuple(t.shape[t.dim() - len(tail):]) != tail:
+            raise ValueError(f"{name}: expected trailing shape {tail}, got "
+                             f"{tuple(t.shape)}")
+        b = tuple(t.shape[: t.dim() - len(tail)])
+        if batch is None:
+            batch = b
+        elif b != batch:
+            raise ValueError(f"{name}: batch shapes {b} and {batch} differ")
+        flat.append(t.reshape((-1,) + tail).contiguous())
+    return flat, batch
+
+
+def pack_words(limbs: torch.Tensor) -> torch.Tensor:
+    """(..., 16) 16-bit limbs -> (..., 8) 32-bit words (int32 bit patterns)."""
+    w = limbs[..., 0::2] | (limbs[..., 1::2] << 16)
+    return torch.where(w >= (1 << 31), w - (1 << 32), w).to(torch.int32).contiguous()
+
+
+def _out(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty((n, 3, 16), dtype=torch.int64, device=like.device)
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(name: str, err: int):
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+def mul_comb(table: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """k*B for a (64, 16, 3, 16) comb table of B; k (..., 16)."""
+    (kf,), batch = _lanes("mul_comb", [k], [(16,)])
+    if tuple(table.shape) != (COMB_WINDOWS, COMB_SIZE, 3, 16):
+        raise ValueError(f"mul_comb: bad comb table shape {tuple(table.shape)}")
+    if table.device != k.device:
+        raise ValueError("mul_comb: table and scalars on different devices")
+    words = pack_words(table)
+    n = kf.shape[0]
+    out = _out(n, kf)
+    lib = build().lib
+    _check("mul_comb", lib.pa_mul_comb(_ptr(kf), _ptr(words), _ptr(out), n,
+                                       _stream(kf.device)))
+    if n:
+        launches["mul_comb"] += 1
+    return out.reshape(batch + (3, 16))
+
+
+def dual_mul(P1, k1, P2, k2, windows: int) -> torch.Tensor:
+    """k1*P1 + k2*P2 over the low `windows` 4-bit windows."""
+    (p1, s1, p2, s2), batch = _lanes(
+        "dual_mul", [P1, k1, P2, k2], [(3, 16), (16,), (3, 16), (16,)])
+    if not 1 <= windows <= COMB_WINDOWS:
+        raise ValueError(f"dual_mul: windows={windows} out of range")
+    n = p1.shape[0]
+    out = _out(n, p1)
+    lib = build().lib
+    _check("dual_mul", lib.pa_dual_mul(
+        _ptr(p1), _ptr(s1), _ptr(p2), _ptr(s2), _ptr(out), n, windows,
+        _stream(p1.device)))
+    if n:
+        launches["dual_mul"] += 1
+    return out.reshape(batch + (3, 16))
+
+
+def quad_mul(P1, k1, P2, k2, P3, k3, P4, k4, windows: int) -> torch.Tensor:
+    """sum k_i*P_i over the low `windows` 4-bit windows."""
+    args, batch = _lanes("quad_mul", [P1, k1, P2, k2, P3, k3, P4, k4],
+                         [(3, 16), (16,)] * 4)
+    if not 1 <= windows <= COMB_WINDOWS:
+        raise ValueError(f"quad_mul: windows={windows} out of range")
+    n = args[0].shape[0]
+    out = _out(n, args[0])
+    lib = build().lib
+    _check("quad_mul", lib.pa_quad_mul(
+        *[_ptr(a) for a in args], _ptr(out), n, windows,
+        _stream(args[0].device)))
+    if n:
+        launches["quad_mul"] += 1
+    return out.reshape(batch + (3, 16))
+
+
+def base_mul_add_glv(P1, t1, P2, t2, s1, s2, sflags, g0_tables,
+                     windows: int) -> torch.Tensor:
+    """g^s * P^t from the GLV split (see ec.base_mul_add_glv_plain);
+    g0_tables (2, 16, 3, 16): window-0 entries of G and phi(G)."""
+    args, batch = _lanes(
+        "base_mul_add_glv", [P1, t1, P2, t2, s1, s2, sflags],
+        [(3, 16), (16,), (3, 16), (16,), (16,), (16,), (2,)])
+    if tuple(g0_tables.shape) != (2, COMB_SIZE, 3, 16):
+        raise ValueError(f"base_mul_add_glv: bad g0 table shape "
+                         f"{tuple(g0_tables.shape)}")
+    if not 1 <= windows <= COMB_WINDOWS:
+        raise ValueError(f"base_mul_add_glv: windows={windows} out of range")
+    words = pack_words(g0_tables.to(args[0].device))
+    n = args[0].shape[0]
+    out = _out(n, args[0])
+    lib = build().lib
+    _check("base_mul_add_glv", lib.pa_base_mul_add_glv(
+        *[_ptr(a) for a in args], _ptr(words), _ptr(out), n, windows,
+        _stream(args[0].device)))
+    if n:
+        launches["base_mul_add_glv"] += 1
+    return out.reshape(batch + (3, 16))
+
+
+# --------------------------------------------------------------------------
+# work counts for the operations bound
+# --------------------------------------------------------------------------
+
+# 32-bit integer multiplies that the point formulas need, for the bound.
+# Each wide (32x32 -> 64) product is two 32-bit multiply results (low and
+# high word).  A field mul is 64 schoolbook products plus 9 in the fold by
+# 2^32 + 977; a squaring needs 36 products (the kernels do 64); a mul by a
+# small odd constant (3, 21, 63) is 8 products plus 1 in the fold; a mul by
+# 2 or 8 is a shift, and only its fold multiplies (1 product; the kernels
+# do a small-constant mul).
+MULS_FE_MUL = 2 * (64 + 9)
+MULS_FE_SQR = 2 * (36 + 9)
+MULS_FE_SMALL = 2 * (8 + 1)
+MULS_FE_SHIFT = 2 * 1
+# RCB16 Alg 7: 12 muls, small muls by 3, 21, 21
+MULS_PT_ADD = 12 * MULS_FE_MUL + 3 * MULS_FE_SMALL
+# RCB16 Alg 9: 6 muls and 2 squarings (Y^2, Z^2), small muls by 21 and 63,
+# shifts by 8 and 2
+MULS_PT_DBL = (6 * MULS_FE_MUL + 2 * MULS_FE_SQR + 2 * MULS_FE_SMALL
+               + 2 * MULS_FE_SHIFT)
+
+
+def int_muls(kernel: str, lanes: int, windows: int = 33) -> int:
+    """32-bit integer multiplies the kernel's function needs for `lanes`
+    lanes, at the counts above (the ladders are constant-time: the count
+    does not depend on the data)."""
+    if kernel == "mul_comb":
+        adds, dbls = COMB_WINDOWS, 0
+    elif kernel == "dual_mul":
+        adds, dbls = 2 * 14 + 2 * windows, 4 * windows
+    elif kernel == "quad_mul":
+        adds, dbls = 4 * 14 + 4 * windows, 4 * windows
+    elif kernel == "base_mul_add_glv":
+        # + two Y negations (field subs, no multiplies) per window
+        adds, dbls = 2 * 14 + 4 * windows, 4 * windows
+    else:
+        raise ValueError(kernel)
+    return lanes * (adds * MULS_PT_ADD + dbls * MULS_PT_DBL)

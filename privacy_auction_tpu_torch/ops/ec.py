@@ -1,0 +1,450 @@
+"""Batched elliptic-curve point operations (secp256k1, a = 0) in PyTorch.
+
+Counterpart of `privacy_auction_tpu/ops/ec.py`.  Points are projective
+(X:Y:Z) limb tensors of shape ``(..., 3, 16)``; Z == 0 encodes the point at
+infinity (canonically (0:1:0)).  The group law is the complete
+Renes-Costello-Batina formulas for a = 0 (RCB16 Algorithms 7 and 9): one
+branchless code path for P+Q, P+P, P+(-P) and the identity.
+
+The four ladders of the protocols' path each have two versions here:
+
+* a kernel written by hand in CUDA C++ (`ops/cuda_ec.py`,
+  `csrc/ec_ladders.cu`), launched for CUDA tensors;
+* its plain PyTorch version (`*_plain` below), which CPU tensors take and
+  which the tests and `chip_smoke.py` hold the kernel against.
+
+Both run the same sequence of formulas, and every field value is
+canonical, so they agree bit for bit in projective coordinates.  The
+dispatch looks only at the device of the tensor it is given: a CPU tensor
+takes the plain version, any other device launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..curves import (COMB_SIZE, COMB_WINDOW, COMB_WINDOWS, GLV_WINDOWS, Curve,
+                      encode_host_point)
+from . import cuda_ec
+from . import field as F
+
+LIMBS = F.LIMBS
+
+
+# --------------------------------------------------------------------------
+# construction / predicates
+# --------------------------------------------------------------------------
+
+def infinity(device, batch_shape=()) -> torch.Tensor:
+    """The point at infinity (0:1:0), broadcast to a batch."""
+    inf = F.const(encode_host_point(None), device)
+    return inf.expand(tuple(batch_shape) + (3, LIMBS))
+
+
+def from_affine(x, y):
+    """Affine limb coordinates -> projective point (Z=1)."""
+    z = torch.zeros_like(x)
+    z[..., 0] = 1
+    return torch.stack([x, y, z], dim=-2)
+
+
+def generator(curve: Curve, device, batch_shape=()) -> torch.Tensor:
+    G = curve.tensor("generator_affine", device)
+    return from_affine(G[0], G[1]).expand(tuple(batch_shape) + (3, LIMBS))
+
+
+def is_infinity(P):
+    return F.is_zero(P[..., 2, :])
+
+
+def select(cond, P, Q):
+    """Branchless point select: cond (...,) -> (..., 3, 16)."""
+    return torch.where(cond[..., None, None], P, Q)
+
+
+def neg(curve: Curve, P):
+    """-(X:Y:Z) = (X:-Y:Z)."""
+    y = P[..., 1, :]
+    return torch.stack([P[..., 0, :], F.neg(curve.fp, y), P[..., 2, :]], dim=-2)
+
+
+def eq(curve: Curve, P, Q):
+    """Projective equality (EC_POINT_cmp equivalent): cross-multiplied."""
+    fp = curve.fp
+    P, Q = torch.broadcast_tensors(P, Q)
+    m = F.mul(fp,
+              torch.stack([P[..., 0, :], P[..., 1, :], Q[..., 0, :], Q[..., 1, :]]),
+              torch.stack([Q[..., 2, :], Q[..., 2, :], P[..., 2, :], P[..., 2, :]]))
+    return F.eq(m[0], m[2]) & F.eq(m[1], m[3])
+
+
+# --------------------------------------------------------------------------
+# group law (complete formulas, a = 0)
+# --------------------------------------------------------------------------
+
+def add(curve: Curve, P, Q):
+    """Complete projective addition (RCB16 Algorithm 7, a=0).
+
+    12 field muls + 3 small-constant muls, grouped into two batched mul
+    calls of six, as the JAX package does.
+    """
+    fp = curve.fp
+    b3 = curve.b3
+    P, Q = torch.broadcast_tensors(P, Q)
+    X1, Y1, Z1 = P[..., 0, :], P[..., 1, :], P[..., 2, :]
+    X2, Y2, Z2 = Q[..., 0, :], Q[..., 1, :], Q[..., 2, :]
+
+    pre = F.add(fp, torch.stack([X1, X2, Y1, Y2, X1, X2]),
+                torch.stack([Y1, Y2, Z1, Z2, Z1, Z2]))
+    g1 = F.mul(fp, torch.stack([X1, Y1, Z1, pre[0], pre[2], pre[4]]),
+               torch.stack([X2, Y2, Z2, pre[1], pre[3], pre[5]]))
+    t0, t1, t2, u1, u2, u3 = g1.unbind(0)
+
+    s = F.add(fp, torch.stack([t0, t1, t0]), torch.stack([t1, t2, t2]))
+    t3, t4, y3 = F.sub(fp, torch.stack([u1, u2, u3]), s).unbind(0)
+
+    t0_3, t2b, y3b = F.mul_small_vec(
+        fp, torch.stack([t0, t2, y3]), [3, b3, b3]).unbind(0)
+    z3p = F.add(fp, t1, t2b)
+    t1m = F.sub(fp, t1, t2b)
+
+    g2 = F.mul(fp, torch.stack([t4, t3, y3b, t1m, t0_3, z3p]),
+               torch.stack([y3b, t1m, t0_3, z3p, t3, t4]))
+    X3 = F.sub(fp, g2[1], g2[0])
+    fin = F.add(fp, torch.stack([g2[3], g2[5]]), torch.stack([g2[2], g2[4]]))
+    return torch.stack([X3, fin[0], fin[1]], dim=-2)
+
+
+def dbl(curve: Curve, P):
+    """Complete projective doubling (RCB16 Algorithm 9, a=0): 8 field muls
+    + small-constant muls, in two batched calls of four."""
+    fp = curve.fp
+    b3 = curve.b3
+    X, Y, Z = P[..., 0, :], P[..., 1, :], P[..., 2, :]
+
+    t0, t1, t2, xy = F.mul(fp, torch.stack([Y, Y, Z, X]),
+                           torch.stack([Y, Z, Z, Y])).unbind(0)
+    z3a, t2b, t2c = F.mul_small_vec(
+        fp, torch.stack([t0, t2, t2]), [8, b3, 3 * b3]).unbind(0)
+    y3a = F.add(fp, t0, t2b)
+    t0m = F.sub(fp, t0, t2c)
+
+    g2 = F.mul(fp, torch.stack([t2b, t1, t0m, t0m]),
+               torch.stack([z3a, z3a, y3a, xy]))
+    fin = F.add(fp, torch.stack([g2[0], g2[3]]), torch.stack([g2[2], g2[3]]))
+    return torch.stack([fin[1], fin[0], g2[1]], dim=-2)
+
+
+def _dbl4(curve: Curve, acc):
+    for _ in range(COMB_WINDOW):
+        acc = dbl(curve, acc)
+    return acc
+
+
+# --------------------------------------------------------------------------
+# window digits and per-lane tables
+# --------------------------------------------------------------------------
+
+def window_digits(k, windows: int = COMB_WINDOWS):
+    """The low `windows` 4-bit digits of scalar limbs k, least significant
+    first: (windows, ...) int64."""
+    shifts = torch.arange(0, 16, COMB_WINDOW, device=k.device)
+    d = (k.unsqueeze(-1) >> shifts) & 0xF                   # (..., 16, 4)
+    d = d.reshape(k.shape[:-1] + (COMB_WINDOWS,))
+    return d.movedim(-1, 0)[:windows]
+
+
+def _select_entry(table, digit):
+    """Per-lane lookup: table (16, batch..., 3, L), digit (batch...)."""
+    idx = digit[None, ..., None, None].expand((1,) + table.shape[1:])
+    return torch.gather(table, 0, idx)[0]
+
+
+def _build_table(curve: Curve, P):
+    """Per-lane 16-entry window table [inf, P, 2P, ..., 15P]; entry i+1 is
+    add(entry i, P), as the TPU kernels fill theirs."""
+    entries = [infinity(P.device, P.shape[:-2]), P]
+    for _ in range(COMB_SIZE - 2):
+        entries.append(add(curve, entries[-1], P))
+    return torch.stack(entries)
+
+
+def _multi_ladder(curve: Curve, Ps, ks, windows: int):
+    """Shared-doubling Straus ladder over S stacked sources.
+
+    Ps: (S, batch..., 3, L); ks: S scalar limb tensors (batch..., L).  Per
+    window, most significant first: 4 doublings, then one add per source in
+    source order.
+    """
+    S = Ps.shape[0]
+    tables = _build_table(curve, Ps)               # (16, S, batch..., 3, L)
+    digs = [window_digits(k, windows) for k in ks]
+    acc = infinity(Ps.device, Ps.shape[1:-2])
+    for w in reversed(range(windows)):
+        acc = _dbl4(curve, acc)
+        for s in range(S):
+            acc = add(curve, acc, _select_entry(tables[:, s], digs[s][w]))
+    return acc
+
+
+# --------------------------------------------------------------------------
+# plain versions of the four kernels
+# --------------------------------------------------------------------------
+
+def mul_comb_plain(curve: Curve, table, k):
+    """k*B over a (64, 16, 3, L) comb table of B: one complete add per
+    window, least significant window first.  Plain version of the
+    `mul_comb` kernel."""
+    digs = window_digits(k)
+    acc = infinity(k.device, k.shape[:-1])
+    for w in range(COMB_WINDOWS):
+        acc = add(curve, acc, table[w][digs[w]])
+    return acc
+
+
+def dual_mul_windows_plain(curve: Curve, P1, k1, P2, k2, windows: int):
+    """k1*P1 + k2*P2 over the low `windows` 4-bit windows.  Plain version of
+    the `dual_mul` kernel."""
+    return _multi_ladder(curve, torch.stack([P1, P2]), [k1, k2], windows)
+
+
+def quad_mul_windows_plain(curve: Curve, P1, k1, P2, k2, P3, k3, P4, k4,
+                           windows: int):
+    """sum k_i*P_i over one shared doubling chain.  Plain version of the
+    `quad_mul` kernel."""
+    return _multi_ladder(curve, torch.stack([P1, P2, P3, P4]),
+                         [k1, k2, k3, k4], windows)
+
+
+def base_mul_add_glv_plain(curve: Curve, P1, t1, P2, t2, s1, s2, sflags,
+                           windows: int):
+    """g^s * P^t with both scalars GLV-split.  Plain version of the
+    `base_mul_add_glv` kernel.
+
+    P1/P2 are the sign-adjusted +-P / +-phi(P) with magnitudes t1/t2; s1/s2
+    are the magnitudes of s's halves, their signs in sflags (..., 2).  The
+    generator side reads the constant window-0 tables of G and phi(G)
+    (affine, Z = 1) and negates the fetched Y where the sign flag is set;
+    any (0:y:0) is a valid infinity for the complete formulas.  Per window:
+    4 doublings, then the G, phi(G), P1, P2 entries in that order.
+    """
+    fp = curve.fp
+    g0 = curve.tensor("g0_tables", P1.device)      # (2, 16, 3, L)
+    tables = _build_table(curve, torch.stack([P1, P2]))
+    dt = [window_digits(t1, windows), window_digits(t2, windows)]
+    ds = [window_digits(s1, windows), window_digits(s2, windows)]
+    acc = infinity(P1.device, P1.shape[:-2])
+    for w in reversed(range(windows)):
+        acc = _dbl4(curve, acc)
+        for j in range(2):
+            e = g0[j][ds[j][w]]
+            y = F.select(sflags[..., j] != 0, F.neg(fp, e[..., 1, :]),
+                         e[..., 1, :])
+            acc = add(curve, acc, torch.stack([e[..., 0, :], y, e[..., 2, :]],
+                                              dim=-2))
+        for j in range(2):
+            acc = add(curve, acc, _select_entry(tables[:, j], dt[j][w]))
+    return acc
+
+
+# --------------------------------------------------------------------------
+# dispatch by device: CPU tensors take the plain version, any other device
+# launches the kernel (which raises where it cannot run)
+# --------------------------------------------------------------------------
+
+def _on_cpu(t) -> bool:
+    return t.device.type == "cpu"
+
+
+def mul_comb(curve: Curve, table, k):
+    """Comb scalar mult against a (64, 16, 3, L) table of any base point."""
+    if _on_cpu(k):
+        return mul_comb_plain(curve, table, k)
+    return cuda_ec.mul_comb(table, k)
+
+
+def mul_base(curve: Curve, k):
+    """Fixed-base scalar mult k*G via the precomputed comb table."""
+    return mul_comb(curve, curve.tensor("comb_table", k.device), k)
+
+
+def dual_mul_windows(curve: Curve, P1, k1, P2, k2, windows: int):
+    if _on_cpu(P1):
+        return dual_mul_windows_plain(curve, P1, k1, P2, k2, windows)
+    return cuda_ec.dual_mul(P1, k1, P2, k2, windows)
+
+
+def quad_mul_windows(curve: Curve, P1, k1, P2, k2, P3, k3, P4, k4,
+                     windows: int):
+    if _on_cpu(P1):
+        return quad_mul_windows_plain(curve, P1, k1, P2, k2, P3, k3, P4, k4,
+                                      windows)
+    return cuda_ec.quad_mul(P1, k1, P2, k2, P3, k3, P4, k4, windows)
+
+
+def base_mul_add_glv(curve: Curve, P1, t1, P2, t2, s1, s2, sflags,
+                     windows: int):
+    if _on_cpu(P1):
+        return base_mul_add_glv_plain(curve, P1, t1, P2, t2, s1, s2, sflags,
+                                      windows)
+    return cuda_ec.base_mul_add_glv(
+        P1, t1, P2, t2, s1, s2, sflags, curve.tensor("g0_tables", P1.device),
+        windows)
+
+
+# --------------------------------------------------------------------------
+# GLV endomorphism
+# --------------------------------------------------------------------------
+
+def glv_decompose(curve: Curve, k):
+    """Branchless GLV split: k (..., 16) mod n -> (|k1|, k1<0, |k2|, k2<0)
+    with k1 + k2*lam = k mod n and |ki| < 2**132.
+
+    c_i = round(k * g_i / 2**272) from one wide limb product plus a
+    rounding bit; the signed lattice combination runs in mod-n arithmetic,
+    and the representative's half-range gives sign and magnitude.
+    """
+    glv = curve.glv
+    fn = curve.fn
+    batch = k.shape[:-1]
+    dev = k.device
+    g12 = F.const(np.stack([glv.g1_limbs, glv.g2_limbs]), dev)
+    g12 = g12.reshape((2,) + (1,) * len(batch) + (10,)).expand((2,) + batch + (10,))
+    prod = F._mul_raw(k.expand((2,) + batch + (LIMBS,)), g12)   # (2, ..., 26)
+    rnd = prod.clone()
+    rnd[..., 16] += 0x8000                                      # + 2**271
+    digits, _ = F._propagate(rnd, 1 << 17)
+    c = F._fit(digits[..., 17:], LIMBS)                         # >> 272
+    c1, c2 = c[0], c[1]
+
+    consts = F.const(np.stack([glv.a1n_limbs, glv.a2n_limbs, glv.b1n_limbs,
+                               glv.b2n_limbs]), dev)
+    m = F.mul(fn, torch.stack([c1, c2, c1, c2]),
+              consts.reshape((4,) + (1,) * len(batch) + (LIMBS,)))
+    sums = F.add(fn, torch.stack([m[0], m[2]]), torch.stack([m[1], m[3]]))
+    km = F.sub(fn, torch.stack([k, torch.zeros_like(k)]), sums)
+
+    half = F.const(curve.host.n // 2, dev, (2,) + batch)
+    _, borrow = F._sub_raw(half, km)                 # borrow iff km > n/2
+    negf = borrow == 1
+    mag = F.select(negf, F.neg(fn, km), km)
+    return mag[0], negf[0], mag[1], negf[1]
+
+
+def endo_apply(curve: Curve, P):
+    """The GLV endomorphism phi(X:Y:Z) = (beta*X : Y : Z) = lam * P."""
+    beta = F.const(curve.glv.beta_limbs, P.device)
+    return torch.stack(
+        [F.mul(curve.fp, P[..., 0, :], beta), P[..., 1, :], P[..., 2, :]],
+        dim=-2)
+
+
+def _glv_split_point(curve: Curve, P, k):
+    """(P1, k1, P2, k2) with k*P = k1*P1 + k2*P2, |ki| < 2**132."""
+    k1, s1, k2, s2 = glv_decompose(curve, k)
+    P1 = select(s1, neg(curve, P), P)
+    P2full = endo_apply(curve, P)
+    P2 = select(s2, neg(curve, P2full), P2full)
+    return P1, k1, P2, k2
+
+
+def _broadcast(points, scalars):
+    batch = torch.broadcast_shapes(*[p.shape[:-2] for p in points],
+                                   *[s.shape[:-1] for s in scalars])
+    return ([p.expand(batch + (3, LIMBS)) for p in points],
+            [s.expand(batch + (LIMBS,)) for s in scalars])
+
+
+def scalar_mul(curve: Curve, P, k):
+    """Variable-base k*P as k1*P + k2*phi(P): a 33-window dual ladder."""
+    (P,), (k,) = _broadcast([P], [k])
+    P1, k1, P2, k2 = _glv_split_point(curve, P, k)
+    return dual_mul_windows(curve, P1, k1, P2, k2, GLV_WINDOWS)
+
+
+def dual_mul(curve: Curve, P, kp, Q, kq):
+    """kp*P + kq*Q as a four-half-scalar shared-doubling ladder."""
+    (P, Q), (kp, kq) = _broadcast([P, Q], [kp, kq])
+    P1, kp1, P2, kp2 = _glv_split_point(curve, P, kp)
+    Q1, kq1, Q2, kq2 = _glv_split_point(curve, Q, kq)
+    return quad_mul_windows(curve, P1, kp1, P2, kp2, Q1, kq1, Q2, kq2,
+                            GLV_WINDOWS)
+
+
+def base_mul_add(curve: Curve, s, P, t):
+    """g^s * P^t with both scalars GLV-split."""
+    (P,), (s, t) = _broadcast([P], [s, t])
+    P1, t1, P2, t2 = _glv_split_point(curve, P, t)
+    s1, ss1, s2, ss2 = glv_decompose(curve, s)
+    sflags = torch.stack([ss1, ss2], dim=-1).to(F.DTYPE)
+    return base_mul_add_glv(curve, P1, t1, P2, t2, s1, s2, sflags,
+                            GLV_WINDOWS)
+
+
+# --------------------------------------------------------------------------
+# affine conversion / serialization
+# --------------------------------------------------------------------------
+
+def to_affine(curve: Curve, P):
+    """Projective -> affine (x, y) limb pair; infinity maps to (0, 0)."""
+    fp = curve.fp
+    zinv = F.inv(fp, P[..., 2, :])
+    xy = F.mul(fp, P[..., :2, :], zinv.unsqueeze(-2))
+    return xy[..., 0, :], xy[..., 1, :]
+
+
+def serialize_uncompressed(curve: Curve, P):
+    """SEC1 uncompressed encoding (..., 65) uint8: 0x04 || X_be || Y_be;
+    infinity is 65 zero bytes, as in the JAX package."""
+    x, y = to_affine(curve, P)
+    prefix = torch.where(is_infinity(P), 0, 4).to(torch.uint8).unsqueeze(-1)
+    return torch.cat([prefix, F.to_bytes_be(x), F.to_bytes_be(y)], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# reductions over point axes (fixed tree order, as the JAX package)
+# --------------------------------------------------------------------------
+
+def ec_prefix_scan(curve: Curve, P, dim: int = 0):
+    """Inclusive prefix sums of points along `dim`: Hillis-Steele, log2(n)
+    levels of shift-and-add, the same tree as the JAX package so the
+    projective limbs agree."""
+    P = P.movedim(dim, 0)
+    n = P.shape[0]
+    if n == 1:
+        return P.movedim(0, dim)
+    inf = infinity(P.device, P.shape[:-2])
+    rows = torch.arange(n, device=P.device).reshape((n,) + (1,) * (P.dim() - 3))
+    v = P
+    for level in range((n - 1).bit_length()):
+        s = 1 << level
+        shifted = select(rows >= s, torch.roll(v, s, dims=0), inf)
+        v = add(curve, v, shifted)
+    return v.movedim(0, dim)
+
+
+def ec_sum(curve: Curve, P, dim: int = 0):
+    """Point sum along `dim` (last prefix of ec_prefix_scan)."""
+    return ec_prefix_scan(curve, P.movedim(dim, 0), dim=0)[-1]
+
+
+# --------------------------------------------------------------------------
+# host-side helpers for tests / setup
+# --------------------------------------------------------------------------
+
+def encode_host_points(points, device="cuda") -> torch.Tensor:
+    """List of host affine points (or None) -> (len, 3, 16) projective limbs
+    on `device`, the GPU unless the caller asks for the CPU."""
+    return torch.as_tensor(np.stack([encode_host_point(p) for p in points]),
+                           dtype=F.DTYPE).to(device)
+
+
+def decode_host_point(curve: Curve, P):
+    """Single point -> host affine pair or None (test helper)."""
+    z = F.limbs_to_int(P[2])
+    if z == 0:
+        return None
+    p = curve.host.p
+    zi = pow(z, p - 2, p)
+    return (F.limbs_to_int(P[0]) * zi % p, F.limbs_to_int(P[1]) * zi % p)

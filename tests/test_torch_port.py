@@ -1,0 +1,99 @@
+"""Properties of the PyTorch port as a package: it needs no JAX, its entry
+points run on the GPU unless asked for the CPU, and a CUDA tensor never
+falls back to the plain path."""
+
+import subprocess
+import sys
+from typing import NamedTuple
+
+import numpy as np
+import pytest
+import torch
+
+from privacy_auction_tpu_torch import interop, nizk
+from privacy_auction_tpu_torch.curves import SECP256K1 as C
+from privacy_auction_tpu_torch.ops import cuda_ec, ec
+from privacy_auction_tpu_torch.protocols import seal
+
+torch.set_num_threads(1)
+
+MODULES = [
+    "privacy_auction_tpu_torch", "privacy_auction_tpu_torch.cli",
+    "privacy_auction_tpu_torch.curves", "privacy_auction_tpu_torch.interop",
+    "privacy_auction_tpu_torch.nizk", "privacy_auction_tpu_torch.ops.cuda_ec",
+    "privacy_auction_tpu_torch.ops.ec", "privacy_auction_tpu_torch.ops.field",
+    "privacy_auction_tpu_torch.ops.sha256",
+    "privacy_auction_tpu_torch.ops.validate",
+    "privacy_auction_tpu_torch.protocols.seal",
+    "privacy_auction_tpu_torch.utils.host_curve",
+    "privacy_auction_tpu_torch.utils.log",
+]
+
+
+def _check_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'privacy_auction_tpu' or m.startswith('privacy_auction_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def _check_cuda_entry_points_raise_without_a_card():
+    with pytest.raises((RuntimeError, AssertionError)):
+        seal.run_auction(C, [1, 2], 2, generator=torch.Generator().manual_seed(0))
+    with pytest.raises((RuntimeError, AssertionError)):
+        interop.to_torch(np.zeros((2, 16), np.uint32))
+    with pytest.raises((RuntimeError, AssertionError)):
+        ec.encode_host_points([None])
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_ec.quad_mul(*[torch.zeros((1, 3, 16), dtype=torch.int64),
+                           torch.zeros((1, 16), dtype=torch.int64)] * 4, 33)
+
+
+def _check_cli_exit_codes(capsys):
+    from privacy_auction_tpu_torch import cli
+
+    assert cli.main(["seal", "2", "1", "--seed", "3", "--no-verify",
+                     "--device", "cpu"]) == 0
+    assert "OK: maxBid" in capsys.readouterr().out
+    with pytest.raises(SystemExit) as e:
+        cli.main(["seal", "2", "1", "--device", "tpu"])
+    assert e.value.code == 2
+
+
+class PoKDLog(NamedTuple):
+    """Stands in for another package's board type of the same name."""
+
+    eps: object
+    rho: object
+
+
+def _check_interop_round_trip_keeps_boards_by_value():
+    pok = nizk.PoKDLog(torch.randint(0, 1 << 16, (2, 3, 16)),
+                       torch.randint(0, 1 << 16, (2, 16)))
+    back = interop.to_numpy(pok, types={"PoKDLog": PoKDLog})
+    assert type(back) is PoKDLog and back.eps.dtype.name == "uint32"
+    again = interop.to_torch(back, device="cpu")
+    assert type(again) is nizk.PoKDLog
+    assert all(torch.equal(a, b) for a, b in zip(pok, again))
+    with pytest.raises(ValueError):
+        interop.to_numpy(torch.tensor([-1]))
+
+
+# One test per file: pytest-xdist (--dist loadfile) queues files by test
+# count, and one-test files go last, after the long-running files of the
+# tier-1 run have been handed out (see ROADMAP.md, Queue 3).
+def test_port_package_contract(capsys):
+    """No JAX, no CPU fallback for CUDA work, the CLI's exit codes, and
+    boards by value through interop."""
+    _check_port_imports_no_jax()
+    if not torch.cuda.is_available():
+        _check_cuda_entry_points_raise_without_a_card()
+    _check_cli_exit_codes(capsys)
+    _check_interop_round_trip_keeps_boards_by_value()
