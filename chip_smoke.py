@@ -4,22 +4,35 @@
     python3 chip_smoke.py
 
 Drives the port (`privacy_auction_tpu_torch`) and nothing of the JAX
-package, in six phases; any failure raises and the exit code is non-zero:
+package, in eight phases; any failure raises and the exit code is non-zero:
 
 1. the card's name and power limit (nvidia-smi);
-2. builds the four EC ladder kernels from `privacy_auction_tpu_torch/csrc/`
-   with nvcc (sm_90a) into `build/cuda_ec/`, with ptxas' register and
-   spill report;
-3. the kernel validator (edge lanes against the host oracle), then each
-   kernel at 4096 lanes against its plain PyTorch version on the card and
-   sampled lanes against the host oracle;
+2. builds the seven EC kernels from `privacy_auction_tpu_torch/csrc/` with
+   nvcc (sm_90a) into `build/cuda_ec/`, with ptxas' register and spill
+   report;
+3. the full kernel validator (the 64-window ladders, `mul_base`, the GLV
+   dispatch and `pt_add`, edge lanes against the host oracle) with the
+   launch counts set to 0 before it and read after it: every kernel must
+   have run; then each of the eight kernel rows (`dual_mul` at 33 and at 64
+   windows) at 4096 lanes against its plain PyTorch version on the card
+   (exactly: integer limbs, tolerance 0) and sampled lanes against the host
+   oracle;
 4. verified SEAL auctions at 20x32 and 128x32 bidders x bits from a seed:
-   each must verify and find the plaintext maximum, and each kernel's
-   launch count must rise during each auction;
-5. one tampered PoKDLog among honest ones is rejected on the card;
-6. per kernel, at a shape the 128x32 auction gives it: the kernel's time
-   (CUDA events), the plain version's time, both outputs compared, and the
-   bound from the 32-bit integer multiplies it performs.
+   each must verify and find the plaintext maximum, and each of its four
+   kernels' launch counts must rise during each auction;
+5. CCS22 auctions at 20x32 and 64x32 from a seed with a random evaluator:
+   each must find the plaintext maximum, `mul_comb`, `dual_mul` and
+   `quad_mul` must rise and no other kernel may run (the protocol has no
+   verification phase); the 20x32 auction's steps run once more with every
+   host synchronization an error; then the setup's SHA-256 alone at 64x32;
+6. one tampered PoKDLog among honest ones is rejected on the card;
+7. tools/bench_ladder_torch.py at 8192 lanes (64-window ladders beside
+   their GLV forms);
+8. per kernel row, at a shape the 128x32 SEAL auction gives it (8192 lanes
+   for the kernels that only the validator reaches): the kernel's time
+   (CUDA events), the plain version's time, both outputs compared exactly
+   (`max_abs_err` must be 0), and the bound from the 32-bit integer
+   multiplies or the bytes it needs.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and last the line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when no
@@ -28,7 +41,9 @@ CUDA device is available or the package is missing.
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import pathlib
 import random
 import subprocess
 import sys
@@ -37,6 +52,8 @@ import time
 DEVICE = "cuda"
 SEED = 20261016
 AUCTIONS = ((20, 32), (128, 32))
+CCS22_AUCTIONS = ((20, 32), (64, 32))
+BENCH_LANES = 8192
 CHECK_LANES = 4096
 SAMPLED = 8
 # Peak 32-bit integer multiply rate of an H100 SXM: 64 results per clock per
@@ -51,7 +68,17 @@ REPLACES = {
     "dual_mul": "privacy_auction_tpu/ops/pallas_ec.py:366",
     "quad_mul": "privacy_auction_tpu/ops/pallas_ec.py:404",
     "base_mul_add_glv": "privacy_auction_tpu/ops/pallas_ec.py:436",
+    "scalar_mul": "privacy_auction_tpu/ops/pallas_ec.py:346",
+    "dual_mul_64": "privacy_auction_tpu/ops/pallas_ec.py:366",
+    "base_mul_add": "privacy_auction_tpu/ops/pallas_ec.py:496",
+    "pt_add": "privacy_auction_tpu/ops/pallas_ec.py:399",
 }
+# the kernel rows: dual_mul serves two, at 33 windows (GLV halves, the
+# protocols) and at 64 (full scalars, the validator)
+ROWS = tuple(REPLACES)
+SEAL_KERNELS = ROWS[:4]
+CCS22_KERNELS = ("mul_comb", "dual_mul", "quad_mul")
+VALIDATOR_ROWS = ROWS[4:]      # the path of the kernels only it reaches
 
 
 def log(msg):
@@ -63,12 +90,14 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
-    from privacy_auction_tpu_torch.curves import GLV_WINDOWS, SECP256K1 as C
+    from privacy_auction_tpu_torch.curves import (COMB_WINDOWS, GLV_WINDOWS,
+                                                  SECP256K1 as C)
     from privacy_auction_tpu_torch.nizk import PoKDLog
     from privacy_auction_tpu_torch.ops import cuda_ec, ec
     from privacy_auction_tpu_torch.ops import field as F
+    from privacy_auction_tpu_torch.ops.sha256 import sha256
     from privacy_auction_tpu_torch.ops.validate import validate_kernels
-    from privacy_auction_tpu_torch.protocols import seal
+    from privacy_auction_tpu_torch.protocols import ccs22, seal
 
     dev = torch.device(DEVICE, 0)
     host = C.host
@@ -93,9 +122,17 @@ def main() -> int:
         elif entry and ("stack frame" in line or "Used" in line):
             log(f"[ptxas] {entry}_kernel: {line.split(':', 1)[-1].strip()}")
 
-    # ---- 3. validator and 4096-lane parity ------------------------------------
+    # ---- 3. validator (this slice's path) and 4096-lane parity ---------------
+    cuda_ec.reset_launches()
     validate_kernels(C, lanes=8, seed=SEED, device=dev)
-    log("[validate] edge lanes (k = 0, 1, n-1; infinity input) match host_curve")
+    torch.cuda.synchronize()
+    validator_launches = dict(cuda_ec.launches)
+    idle = [k for k, v in validator_launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"validator: kernels {idle} never launched")
+    log("[validate] 64-window ladders, mul_base, GLV dispatch and pt_add: "
+        "edge lanes (k = 0, 1, n-1; infinity input) match host_curve; "
+        f"launches {json.dumps(validator_launches)}")
     cuda_ec.reset_launches()
 
     rng = random.Random(SEED)
@@ -111,7 +148,8 @@ def main() -> int:
 
     def kernel_inputs(name, lanes):
         """(kernel call, plain call, host oracle for lane i) on random data;
-        the GLV kernels get 132-bit scalars, as the split gives them."""
+        the GLV kernels get 132-bit scalars, as the split gives them, the
+        64-window ladders full scalars."""
         g0 = C.tensor("g0_tables", dev)
         if name == "mul_comb":
             ks, k = scalars(lanes)
@@ -119,6 +157,26 @@ def main() -> int:
             return ((lambda: cuda_ec.mul_comb(table, k)),
                     (lambda: ec.mul_comb_plain(C, table, k)),
                     lambda i: host.mul(ks[i], host.g))
+        if name == "pt_add":
+            (a, P), (b, Q) = points(lanes), points(lanes)
+            return ((lambda: cuda_ec.pt_add(P, Q)), (lambda: ec.add(C, P, Q)),
+                    lambda i: host.mul(a[i] + b[i], host.g))
+        if name in ("scalar_mul", "base_mul_add", "dual_mul_64"):
+            (a, P), (b, Q) = points(lanes), points(lanes)
+            (ss, s), (ts, t) = scalars(lanes), scalars(lanes)
+            if name == "scalar_mul":
+                return ((lambda: cuda_ec.scalar_mul(P, s)),
+                        (lambda: ec.scalar_mul_windows_plain(C, P, s)),
+                        lambda i: host.mul(a[i] * ss[i], host.g))
+            if name == "base_mul_add":
+                g0b = C.tensor("g0_table", dev)
+                return ((lambda: cuda_ec.base_mul_add(s, P, t, g0b)),
+                        (lambda: ec.base_mul_add_plain(C, s, P, t)),
+                        lambda i: host.mul(ss[i] + a[i] * ts[i], host.g))
+            return ((lambda: cuda_ec.dual_mul(P, s, Q, t, COMB_WINDOWS)),
+                    (lambda: ec.dual_mul_windows_plain(C, P, s, Q, t,
+                                                       COMB_WINDOWS)),
+                    lambda i: host.mul(a[i] * ss[i] + b[i] * ts[i], host.g))
         nsrc = {"dual_mul": 2, "quad_mul": 4, "base_mul_add_glv": 2}[name]
         srcs = [points(lanes) + scalars(lanes, 132) for _ in range(nsrc)]
         args = [t for a, P, s, k in srcs for t in (P, k)]
@@ -148,7 +206,7 @@ def main() -> int:
                                                    GLV_WINDOWS)),
                 want)
 
-    for name in cuda_ec.KERNELS:
+    for name in ROWS:
         run_k, run_p, want = kernel_inputs(name, CHECK_LANES)
         got = run_k()
         ref = run_p()
@@ -178,7 +236,7 @@ def main() -> int:
         if not res.verified or res.max_bid != max(bids):
             raise AssertionError(f"SEAL {n}x{c}: verified={res.verified} "
                                  f"max_bid={res.max_bid} != {max(bids)}")
-        idle = [k for k, v in counts.items() if v == 0]
+        idle = [k for k in SEAL_KERNELS if counts[k] == 0]
         if idle:
             raise AssertionError(f"SEAL {n}x{c}: kernels {idle} never launched")
         auction_launches[(n, c)] = counts
@@ -186,7 +244,72 @@ def main() -> int:
             "phases " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()))
         log(f"[seal {n}x{c}] launches {json.dumps(counts)}")
 
-    # ---- 5. a tampered PoKDLog is rejected ----------------------------------------
+    # ---- 5. CCS22 auctions ---------------------------------------------------------
+    ccs22_launches = {}
+    for n, c in CCS22_AUCTIONS:
+        bids = [rng.randrange(1 << c) for _ in range(n)]
+        eval_id = rng.randrange(n)
+        times = {}
+        ccs22.pp_or_make(C, dev)          # the CRS: host hash-to-curve, once
+        cuda_ec.reset_launches()
+        t0 = time.perf_counter()
+        res = ccs22.run_auction(C, bids, c, eval_id,
+                                generator=torch.Generator().manual_seed(SEED + n),
+                                device=dev, times=times)
+        wall = time.perf_counter() - t0
+        counts = dict(cuda_ec.launches)
+        if res.max_bid != max(bids):
+            raise AssertionError(f"CCS22 {n}x{c}: max_bid={res.max_bid} != "
+                                 f"{max(bids)}")
+        idle = [k for k in CCS22_KERNELS if counts[k] == 0]
+        stray = [k for k, v in counts.items() if v and k not in CCS22_KERNELS]
+        if idle or stray:
+            raise AssertionError(f"CCS22 {n}x{c}: kernels {idle} never "
+                                 f"launched, {stray} launched")
+        ccs22_launches[(n, c)] = counts
+        log(f"[ccs22 {n}x{c}] evaluator {eval_id}, max_bid={res.max_bid}, wall "
+            f"{wall:.3f} s; phases " + ", ".join(f"{k} {v:.3f} s"
+                                                 for k, v in times.items()))
+        log(f"[ccs22 {n}x{c}] launches {json.dumps(counts)}")
+        if (n, c) == CCS22_AUCTIONS[0]:
+            # the steps once more, from the same draws, with every host
+            # synchronization an error: nothing is read back between steps
+            pp = ccs22.pp_or_make(C, dev)
+            draws = ccs22.draw(C, torch.Generator().manual_seed(SEED + n), n,
+                               c, dev)
+            pre = ccs22._precompute(C, pp, res.board.setup.X, draws)
+            bits = torch.as_tensor(seal.bids_to_bits(bids, c), device=dev)
+            eid = torch.tensor(eval_id, device=dev)
+            g1n = pp.g1.expand(n, 3, F.LIMBS)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                announced = ccs22._scan_steps(C, pre, g1n, bits, eid)[0]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if not torch.equal(announced, res.board.announced):
+                raise AssertionError(f"CCS22 {n}x{c}: the steps rerun announced "
+                                     "other bits")
+            log(f"[ccs22 {n}x{c}] the {c} steps ran with host syncs made "
+                "errors: none occurred, the same bits were announced")
+
+    # the setup's SHA-256 alone at the larger size: the parties' hashes
+    # (4c scalars each, one batch) and the evaluator's (its own secrets and
+    # all n*c OT betas, one message)
+    n, c = CCS22_AUCTIONS[-1]
+    for what, shape in (("parties'", (n, 4 * c * 32)),
+                        ("evaluator's", (4 * c * 32 + n * c * 32,))):
+        msg = torch.randint(0, 256, shape, generator=torch.Generator()
+                            .manual_seed(SEED), dtype=torch.uint8).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sha256(msg)
+        torch.cuda.synchronize()
+        log(f"[ccs22 {n}x{c}] the {what} SHA-256 alone: {shape[-1]} B a "
+            f"message, {(shape[-1] + 9 + 63) // 64} blocks, "
+            f"{time.perf_counter() - t0:.3f} s")
+
+    # ---- 6. a tampered PoKDLog is rejected ----------------------------------------
     n_t = 8
     ids = torch.arange(n_t, device=dev)
     pub, _ = seal.round_one_batch(C, torch.Generator().manual_seed(SEED), n_t, 1,
@@ -204,22 +327,41 @@ def main() -> int:
     log("[tamper] the PoKDLog with a flipped rho limb is rejected, its "
         f"{n_t - 1} neighbours pass")
 
-    # ---- 6. kernel times at the 128x32 auction's shapes -----------------------------
+    # ---- 7. the ladder bench ------------------------------------------------------
+    spec = importlib.util.spec_from_file_location(
+        "bench_ladder_torch",
+        pathlib.Path(__file__).resolve().parent / "tools" / "bench_ladder_torch.py")
+    bench_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_mod)
+    log("[bench] tools/bench_ladder_torch.py --lanes "
+        f"{BENCH_LANES}: {json.dumps(bench_mod.bench([BENCH_LANES], device=dev)[0])}")
+
+    # ---- 8. kernel times at the 128x32 auction's shapes -----------------------------
     n, c = AUCTIONS[-1]
     shapes = {
         "mul_comb": 4 * c * n,       # round-1 keys and nonce commitments
         "dual_mul": 2 * c * n,       # Y^x and R^x for every step
         "quad_mul": 16 * n,          # one Stage2 proof pass
         "base_mul_add_glv": 2 * c * n,   # round-1 PoKDLog verification
+        # the validator's kernels, at dual_mul's shape, beside their GLV forms
+        "scalar_mul": 2 * c * n, "dual_mul_64": 2 * c * n,
+        "base_mul_add": 2 * c * n, "pt_add": 2 * c * n,
     }
+    windows = {"dual_mul": GLV_WINDOWS, "quad_mul": GLV_WINDOWS,
+               "base_mul_add_glv": GLV_WINDOWS, "scalar_mul": COMB_WINDOWS,
+               "dual_mul_64": COMB_WINDOWS, "base_mul_add": COMB_WINDOWS}
     # bytes each input is read once and the output written once: int64
     # points 384 B, scalars 128 B, sign flags 16 B; the constant tables once
     bytes_per_lane = {"mul_comb": 128 + 384, "dual_mul": 2 * 512 + 384,
                       "quad_mul": 4 * 512 + 384,
-                      "base_mul_add_glv": 2 * 512 + 2 * 128 + 16 + 384}
-    table_bytes = {"mul_comb": 64 * 16 * 384, "base_mul_add_glv": 2 * 16 * 384}
+                      "base_mul_add_glv": 2 * 512 + 2 * 128 + 16 + 384,
+                      "scalar_mul": 512 + 384, "dual_mul_64": 2 * 512 + 384,
+                      "base_mul_add": 384 + 2 * 128 + 384,
+                      "pt_add": 2 * 384 + 384}
+    table_bytes = {"mul_comb": 64 * 16 * 384, "base_mul_add_glv": 2 * 16 * 384,
+                   "base_mul_add": 16 * 384}
     report = []
-    for name in cuda_ec.KERNELS:
+    for name in ROWS:
         lanes = shapes[name]
         run_k, run_p, _ = kernel_inputs(name, lanes)
         run_k()
@@ -240,15 +382,22 @@ def main() -> int:
         err = int((got - ref).abs().max())
         if err:
             raise AssertionError(f"{name}: kernel and plain differ at {lanes} lanes")
-        ops_s = cuda_ec.int_muls(name, lanes, GLV_WINDOWS) / INT_MUL_RATE
+        ops_s = cuda_ec.int_muls(name.removesuffix("_64"), lanes,
+                                 windows.get(name, GLV_WINDOWS)) / INT_MUL_RATE
         bytes_s = (lanes * bytes_per_lane[name]
                    + table_bytes.get(name, 0)) / HBM_RATE
+        path = ("seal 20x32" if name in SEAL_KERNELS else "validator")
         report.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
-            "launches": auction_launches[AUCTIONS[0]][name],
-            f"launches_{n}x{c}": auction_launches[AUCTIONS[-1]][name],
-            "lanes": lanes, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "launches": (auction_launches[AUCTIONS[0]][name]
+                         if name in SEAL_KERNELS else validator_launches[name]),
+            "launches_path": path,
+            "launches_seal_128x32": auction_launches[AUCTIONS[-1]][name],
+            **{f"launches_ccs22_{a}x{b}": ccs22_launches[(a, b)][name]
+               for a, b in CCS22_AUCTIONS},
+            "launches_validator": validator_launches[name],
+            "lanes": lanes, "windows": windows.get(name), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "library_ms": None,

@@ -1,4 +1,8 @@
-// The four EC ladder kernels of the SEAL auction's path, for Hopper (sm_90a).
+// The EC kernels of the port, for Hopper (sm_90a): the four ladders of the
+// SEAL and CCS22 auctions' path (mul_comb, dual_mul at 33 windows, quad_mul,
+// base_mul_add_glv) and the three kernels that only the kernel validator and
+// the ladder bench reach (scalar_mul and dual_mul at 64 windows, the non-GLV
+// base_mul_add, and pt_add).
 //
 // Built by privacy_auction_tpu_torch/ops/cuda_ec.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -18,7 +22,8 @@
 //    32-bit words in device memory; every lane reads the same entries, which
 //    replaces the TPU's exact one-hot f32 MXU matmuls.
 //
-// What bounds them: 32-bit integer multiplies.  One field mul is an 8x8
+// What bounds the ladders: 32-bit integer multiplies (pt_add, one add per
+// lane, is bound by its bytes instead; see its note).  One field mul is an 8x8
 // schoolbook of 64 wide (32x32->64) products plus 9 for the fold by
 // 2^32 + 977; cuda_ec.int_muls() counts, per lane from the ladder shape,
 // what the formulas need (squarings at 36 products, muls by 2 and 8 as
@@ -41,6 +46,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kCombWindows = 64;  // 4-bit windows of a 256-bit scalar
 
 using pa::Pt;
 
@@ -57,7 +63,7 @@ mul_comb_kernel(const int64_t* __restrict__ k, const uint32_t* __restrict__ tabl
   const int64_t* kl = k + (size_t)lane * 16;
   Pt acc = pa::pt_infinity();
 #pragma unroll 1
-  for (int w = 0; w < 64; ++w) {
+  for (int w = 0; w < kCombWindows; ++w) {
     const uint32_t d = pa::scalar_digit(kl, w);
     const Pt* tw = reinterpret_cast<const Pt*>(table) + w * 16;
     acc = pa::pt_add(acc, pa::pt_select16(tw, d));
@@ -69,9 +75,12 @@ mul_comb_kernel(const int64_t* __restrict__ k, const uint32_t* __restrict__ tabl
 // Straus ladder: sum of S k_i*P_i over `windows` 4-bit windows, one shared
 // doubling chain.  Per lane: S * 14 table adds + windows * (4 doublings +
 // S adds); S tables of 16 entries (1.5 KiB each) in local memory.
+//  * scalar_mul (S = 1): k*P over 64 windows, the plain ladder without GLV.
+//    Replaces _scalar_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:346).
 //  * dual_mul (S = 2): k1*P1 + k2*P2, at 33 windows for the GLV halves of
-//    scalar_mul.  Replaces _dual_mul_kernel
-//    (privacy_auction_tpu/ops/pallas_ec.py:366).
+//    scalar_mul, and at 64 windows on full scalars (kp*P + kq*Q without
+//    GLV).  Replaces _dual_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:366)
+//    at both window counts.
 //  * quad_mul (S = 4): four GLV half-scalars; 6 KiB of tables.  Replaces
 //    _quad_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:404).
 // ---------------------------------------------------------------------------
@@ -102,6 +111,10 @@ __device__ __forceinline__ void straus(const StrausArgs<S>& a) {
                                 T[s], pa::scalar_digit(a.k[s] + (size_t)lane * 16, w)));
   }
   pa::pt_store_limbs(a.out + (size_t)lane * 48, acc);
+}
+
+__global__ void __launch_bounds__(kThreads) scalar_mul_kernel(StrausArgs<1> a) {
+  straus(a);
 }
 
 __global__ void __launch_bounds__(kThreads) dual_mul_kernel(StrausArgs<2> a) {
@@ -167,6 +180,56 @@ __global__ void __launch_bounds__(kThreads) base_mul_add_glv_kernel(BaseArgs a) 
   pa::pt_store_limbs(a.out + (size_t)lane * 48, acc);
 }
 
+// ---------------------------------------------------------------------------
+// base_mul_add: g^s * P^t without GLV, one doubling chain over the 64
+// 4-bit windows of the full scalars.
+// Replaces _base_mul_add_kernel (privacy_auction_tpu/ops/pallas_ec.py:496).
+// Per window, in the TPU kernel's order: 4 doublings, the add of the
+// constant window-0 entry s_w*G (affine, Z = 1; read from device memory with
+// the masked select, every lane the same addresses), then the add of the
+// per-lane entry t_w*P.  Per lane: 14 table adds + 64 * (4 doublings +
+// 2 adds); one 1.5 KiB table in local memory.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+base_mul_add_kernel(const int64_t* __restrict__ P, const int64_t* __restrict__ t,
+                    const int64_t* __restrict__ s, const uint32_t* __restrict__ g0,
+                    int64_t* __restrict__ out, int n) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= n) return;
+  Pt T[16];
+  pa::pt_fill_table(T, pa::pt_load_limbs(P + (size_t)lane * 48));
+  const int64_t* tl = t + (size_t)lane * 16;
+  const int64_t* sl = s + (size_t)lane * 16;
+  const Pt* G = reinterpret_cast<const Pt*>(g0);
+  Pt acc = pa::pt_infinity();
+#pragma unroll 1
+  for (int w = kCombWindows - 1; w >= 0; --w) {
+    acc = pa::pt_dbl4(acc);
+    acc = pa::pt_add(acc, pa::pt_select16(G, pa::scalar_digit(sl, w)));
+    acc = pa::pt_add(acc, pa::pt_select16(T, pa::scalar_digit(tl, w)));
+  }
+  pa::pt_store_limbs(out + (size_t)lane * 48, acc);
+}
+
+// ---------------------------------------------------------------------------
+// pt_add: one complete RCB16 Alg 7 add P + Q per lane, the sequence of the
+// plain ec.add.  Replaces _pt_add_kernel (privacy_auction_tpu/ops/pallas_ec.py:399).
+// Bound by bytes, not multiplies: a lane moves 1,152 B as int64 limbs (two
+// 384 B points read, one written) for 12 field muls, so at 3.35 TB/s the
+// memory takes about 3x the multiply time.  One thread per lane reads its
+// own 48 limbs; the layout conversion keeps the package's int64 format, which
+// is 4x the bytes of packed 32-bit words.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+pt_add_kernel(const int64_t* __restrict__ P, const int64_t* __restrict__ Q,
+              int64_t* __restrict__ out, int n) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= n) return;
+  pa::pt_store_limbs(out + (size_t)lane * 48,
+                     pa::pt_add(pa::pt_load_limbs(P + (size_t)lane * 48),
+                                pa::pt_load_limbs(Q + (size_t)lane * 48)));
+}
+
 inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -177,6 +240,13 @@ int pa_mul_comb(const int64_t* k, const uint32_t* table, int64_t* out, int n,
                 void* stream) {
   if (n > 0)
     mul_comb_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(k, table, out, n);
+  return (int)cudaGetLastError();
+}
+
+int pa_scalar_mul(const int64_t* P, const int64_t* k, int64_t* out, int n,
+                  int windows, void* stream) {
+  StrausArgs<1> a{{P}, {k}, out, n, windows};
+  if (n > 0) scalar_mul_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -203,6 +273,20 @@ int pa_base_mul_add_glv(const int64_t* P1, const int64_t* t1, const int64_t* P2,
   BaseArgs a{P1, t1, P2, t2, s1, s2, sflags, g0, out, n, windows};
   if (n > 0)
     base_mul_add_glv_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int pa_base_mul_add(const int64_t* P, const int64_t* t, const int64_t* s,
+                    const uint32_t* g0, int64_t* out, int n, void* stream) {
+  if (n > 0)
+    base_mul_add_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+        P, t, s, g0, out, n);
+  return (int)cudaGetLastError();
+}
+
+int pa_pt_add(const int64_t* P, const int64_t* Q, int64_t* out, int n, void* stream) {
+  if (n > 0)
+    pt_add_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(P, Q, out, n);
   return (int)cudaGetLastError();
 }
 

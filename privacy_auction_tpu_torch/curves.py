@@ -55,14 +55,22 @@ class Curve:
         return make_comb_table(self.host, self.host.g)
 
     @functools.cached_property
-    def glv(self) -> "GlvParams":
+    def glv(self) -> "GlvParams | None":
+        """GLV endomorphism parameters, or None for a curve without the
+        endomorphism (the ladders then take their 64-window forms)."""
         return derive_glv_params(self.host)
+
+    @functools.cached_property
+    def g0_table(self) -> np.ndarray:
+        """(16, 3, 16): window-0 comb entries d*G (Z = 1), the constant
+        table of the `base_mul_add` ladder without GLV."""
+        return np.array(self.comb_table[0])
 
     @functools.cached_property
     def g0_tables(self) -> np.ndarray:
         """(2, 16, 3, 16): window-0 comb entries d*G and d*phi(G) (Z = 1),
-        the constant tables of `base_mul_add`."""
-        t = np.array(self.comb_table[0])
+        the constant tables of the GLV `base_mul_add`."""
+        t = self.g0_table
         tl = t.copy()
         for d in range(1, COMB_SIZE):
             x = F.limbs_to_int(t[d, 0])
@@ -120,13 +128,14 @@ def _round_div(a: int, b: int) -> int:
     return (2 * a + b) // (2 * b)
 
 
-def derive_glv_params(host: HostCurve) -> GlvParams:
+def derive_glv_params(host: HostCurve) -> GlvParams | None:
     """GLV constants for an a=0 curve with p = n = 1 mod 3, from first
     principles (order-3 elements, a short lattice basis by the truncated
-    extended Euclid of GECC Alg 3.74, rounding multipliers 2**272*|b|/n)."""
+    extended Euclid of GECC Alg 3.74, rounding multipliers 2**272*|b|/n);
+    None for any other curve."""
     p, n = host.p, host.n
     if host.a != 0 or p % 3 != 1 or n % 3 != 1:
-        raise ValueError(f"{host.name} has no GLV endomorphism")
+        return None
 
     def order3(m):
         for x in range(2, 100):

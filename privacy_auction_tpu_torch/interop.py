@@ -4,7 +4,7 @@ Both packages keep the same layout at every public function: scalars are
 (..., 16) and points (..., 3, 16) 16-bit little-endian limbs, points
 projective with Z = 0 at infinity.  The JAX package holds limbs as uint32,
 the port as int64.  These helpers convert arrays taken as numpy, and the
-SEAL board NamedTuples, by value in both directions, so a board one package
+SEAL and CCS22 board NamedTuples, by value in both directions, so a board one package
 writes can be checked by the other.  They import nothing of the JAX
 package: a NamedTuple is matched to the port's type of the same name, and
 on the way back the caller names the target types.
@@ -16,13 +16,15 @@ import numpy as np
 import torch
 
 from . import nizk
-from .protocols import seal
+from .protocols import ccs22, seal
 
 BOARD_TYPES = {
     t.__name__: t for t in (
         nizk.PoKDLog, nizk.PoWFCom, nizk.PoWFStage1, nizk.PoWFStage2,
         seal.CommitmentPub, seal.CommitmentSec, seal.RoundOnePub,
         seal.RoundOneSec, seal.StepInfo,
+        ccs22.PubParams, ccs22.SetupPub, ccs22.SetupSec, ccs22.OTR1,
+        ccs22.OTS,
     )
 }
 

@@ -10,9 +10,12 @@ fallback: a CPU tensor, a missing `nvcc` or a failed build raises.
 
 | wrapper            | kernel                  | TPU kernel it replaces                  |
 | mul_comb           | mul_comb_kernel         | _mul_base_kernel (pallas_ec.py:538)     |
-| dual_mul           | dual_mul_kernel         | _dual_mul_kernel (pallas_ec.py:366)     |
+| scalar_mul         | scalar_mul_kernel       | _scalar_mul_kernel (pallas_ec.py:346)   |
+| dual_mul           | dual_mul_kernel         | _dual_mul_kernel (pallas_ec.py:366), at 33 and 64 windows |
 | quad_mul           | quad_mul_kernel         | _quad_mul_kernel (pallas_ec.py:404)     |
 | base_mul_add_glv   | base_mul_add_glv_kernel | _base_mul_add_glv_kernel (pallas_ec.py:436) |
+| base_mul_add       | base_mul_add_kernel     | _base_mul_add_kernel (pallas_ec.py:496) |
+| pt_add             | pt_add_kernel           | _pt_add_kernel (pallas_ec.py:399)       |
 """
 
 from __future__ import annotations
@@ -35,8 +38,12 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cuda_ec"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv")
-launches = dict.fromkeys(KERNELS, 0)
+KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv",
+           "scalar_mul", "base_mul_add", "pt_add")
+# Launch counts by wrapper; `dual_mul` counts its 64-window launches (full
+# scalars, the ladder without GLV) under "dual_mul_64", apart from the
+# 33-window launches that the GLV split gives it.
+launches = dict.fromkeys(KERNELS + ("dual_mul_64",), 0)
 
 
 class Build:
@@ -55,7 +62,7 @@ _build: Build | None = None
 
 
 def reset_launches():
-    for name in KERNELS:
+    for name in launches:
         launches[name] = 0
 
 
@@ -105,8 +112,12 @@ def build() -> Build:
     lib.pa_dual_mul.argtypes = [P, P, P, P, P, I, I, P]
     lib.pa_quad_mul.argtypes = [P] * 9 + [I, I, P]
     lib.pa_base_mul_add_glv.argtypes = [P] * 9 + [I, I, P]
+    lib.pa_scalar_mul.argtypes = [P, P, P, I, I, P]
+    lib.pa_base_mul_add.argtypes = [P] * 5 + [I, P]
+    lib.pa_pt_add.argtypes = [P, P, P, I, P]
     for fn in (lib.pa_mul_comb, lib.pa_dual_mul, lib.pa_quad_mul,
-               lib.pa_base_mul_add_glv):
+               lib.pa_base_mul_add_glv, lib.pa_scalar_mul, lib.pa_base_mul_add,
+               lib.pa_pt_add):
         fn.restype = I
     _build = Build(lib, lib_path, seconds, log_path.read_text())
     return _build
@@ -187,12 +198,30 @@ def mul_comb(table: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return out.reshape(batch + (3, 16))
 
 
+def _check_windows(name: str, windows: int):
+    if not 1 <= windows <= COMB_WINDOWS:
+        raise ValueError(f"{name}: windows={windows} out of range")
+
+
+def scalar_mul(P, k, windows: int = COMB_WINDOWS) -> torch.Tensor:
+    """k*P over the low `windows` 4-bit windows (all 64 by default)."""
+    (p, s), batch = _lanes("scalar_mul", [P, k], [(3, 16), (16,)])
+    _check_windows("scalar_mul", windows)
+    n = p.shape[0]
+    out = _out(n, p)
+    lib = build().lib
+    _check("scalar_mul", lib.pa_scalar_mul(_ptr(p), _ptr(s), _ptr(out), n,
+                                           windows, _stream(p.device)))
+    if n:
+        launches["scalar_mul"] += 1
+    return out.reshape(batch + (3, 16))
+
+
 def dual_mul(P1, k1, P2, k2, windows: int) -> torch.Tensor:
     """k1*P1 + k2*P2 over the low `windows` 4-bit windows."""
     (p1, s1, p2, s2), batch = _lanes(
         "dual_mul", [P1, k1, P2, k2], [(3, 16), (16,), (3, 16), (16,)])
-    if not 1 <= windows <= COMB_WINDOWS:
-        raise ValueError(f"dual_mul: windows={windows} out of range")
+    _check_windows("dual_mul", windows)
     n = p1.shape[0]
     out = _out(n, p1)
     lib = build().lib
@@ -200,7 +229,7 @@ def dual_mul(P1, k1, P2, k2, windows: int) -> torch.Tensor:
         _ptr(p1), _ptr(s1), _ptr(p2), _ptr(s2), _ptr(out), n, windows,
         _stream(p1.device)))
     if n:
-        launches["dual_mul"] += 1
+        launches["dual_mul_64" if windows == COMB_WINDOWS else "dual_mul"] += 1
     return out.reshape(batch + (3, 16))
 
 
@@ -208,8 +237,7 @@ def quad_mul(P1, k1, P2, k2, P3, k3, P4, k4, windows: int) -> torch.Tensor:
     """sum k_i*P_i over the low `windows` 4-bit windows."""
     args, batch = _lanes("quad_mul", [P1, k1, P2, k2, P3, k3, P4, k4],
                          [(3, 16), (16,)] * 4)
-    if not 1 <= windows <= COMB_WINDOWS:
-        raise ValueError(f"quad_mul: windows={windows} out of range")
+    _check_windows("quad_mul", windows)
     n = args[0].shape[0]
     out = _out(n, args[0])
     lib = build().lib
@@ -231,8 +259,7 @@ def base_mul_add_glv(P1, t1, P2, t2, s1, s2, sflags, g0_tables,
     if tuple(g0_tables.shape) != (2, COMB_SIZE, 3, 16):
         raise ValueError(f"base_mul_add_glv: bad g0 table shape "
                          f"{tuple(g0_tables.shape)}")
-    if not 1 <= windows <= COMB_WINDOWS:
-        raise ValueError(f"base_mul_add_glv: windows={windows} out of range")
+    _check_windows("base_mul_add_glv", windows)
     words = pack_words(g0_tables.to(args[0].device))
     n = args[0].shape[0]
     out = _out(n, args[0])
@@ -242,6 +269,39 @@ def base_mul_add_glv(P1, t1, P2, t2, s1, s2, sflags, g0_tables,
         _stream(args[0].device)))
     if n:
         launches["base_mul_add_glv"] += 1
+    return out.reshape(batch + (3, 16))
+
+
+def base_mul_add(s, P, t, g0_table) -> torch.Tensor:
+    """g^s * P^t without GLV over the 64 4-bit windows of the full scalars;
+    g0_table (16, 3, 16): the window-0 comb entries d*G (Z = 1)."""
+    (p, tt, ss), batch = _lanes("base_mul_add", [P, t, s],
+                                [(3, 16), (16,), (16,)])
+    if tuple(g0_table.shape) != (COMB_SIZE, 3, 16):
+        raise ValueError(f"base_mul_add: bad g0 table shape "
+                         f"{tuple(g0_table.shape)}")
+    words = pack_words(g0_table.to(p.device))
+    n = p.shape[0]
+    out = _out(n, p)
+    lib = build().lib
+    _check("base_mul_add", lib.pa_base_mul_add(
+        _ptr(p), _ptr(tt), _ptr(ss), _ptr(words), _ptr(out), n,
+        _stream(p.device)))
+    if n:
+        launches["base_mul_add"] += 1
+    return out.reshape(batch + (3, 16))
+
+
+def pt_add(P, Q) -> torch.Tensor:
+    """One complete projective add P + Q per lane."""
+    (p, q), batch = _lanes("pt_add", [P, Q], [(3, 16), (3, 16)])
+    n = p.shape[0]
+    out = _out(n, p)
+    lib = build().lib
+    _check("pt_add", lib.pa_pt_add(_ptr(p), _ptr(q), _ptr(out), n,
+                                   _stream(p.device)))
+    if n:
+        launches["pt_add"] += 1
     return out.reshape(batch + (3, 16))
 
 
@@ -270,10 +330,16 @@ MULS_PT_DBL = (6 * MULS_FE_MUL + 2 * MULS_FE_SQR + 2 * MULS_FE_SMALL
 
 def int_muls(kernel: str, lanes: int, windows: int = 33) -> int:
     """32-bit integer multiplies the kernel's function needs for `lanes`
-    lanes, at the counts above (the ladders are constant-time: the count
+    lanes, at the counts above (the kernels are constant-time: the count
     does not depend on the data)."""
     if kernel == "mul_comb":
         adds, dbls = COMB_WINDOWS, 0
+    elif kernel == "pt_add":
+        adds, dbls = 1, 0
+    elif kernel == "scalar_mul":
+        adds, dbls = 14 + windows, 4 * windows
+    elif kernel == "base_mul_add":
+        adds, dbls = 14 + 2 * windows, 4 * windows
     elif kernel == "dual_mul":
         adds, dbls = 2 * 14 + 2 * windows, 4 * windows
     elif kernel == "quad_mul":

@@ -6,12 +6,15 @@ infinity (canonically (0:1:0)).  The group law is the complete
 Renes-Costello-Batina formulas for a = 0 (RCB16 Algorithms 7 and 9): one
 branchless code path for P+Q, P+P, P+(-P) and the identity.
 
-The four ladders of the protocols' path each have two versions here:
+Each of the seven EC kernels -- the four ladders of the protocols' path
+and, for a curve without GLV (reached today through the kernel validator),
+the 64-window ladders and the single add -- has two versions here:
 
 * a kernel written by hand in CUDA C++ (`ops/cuda_ec.py`,
   `csrc/ec_ladders.cu`), launched for CUDA tensors;
-* its plain PyTorch version (`*_plain` below), which CPU tensors take and
-  which the tests and `chip_smoke.py` hold the kernel against.
+* its plain PyTorch version (`*_plain` below, `add` for `pt_add`), which
+  CPU tensors take and which the tests and `chip_smoke.py` hold the kernel
+  against.
 
 Both run the same sequence of formulas, and every field value is
 canonical, so they agree bit for bit in projective coordinates.  The
@@ -189,7 +192,7 @@ def _multi_ladder(curve: Curve, Ps, ks, windows: int):
 
 
 # --------------------------------------------------------------------------
-# plain versions of the four kernels
+# plain versions of the kernels
 # --------------------------------------------------------------------------
 
 def mul_comb_plain(curve: Curve, table, k):
@@ -201,6 +204,13 @@ def mul_comb_plain(curve: Curve, table, k):
     for w in range(COMB_WINDOWS):
         acc = add(curve, acc, table[w][digs[w]])
     return acc
+
+
+def scalar_mul_windows_plain(curve: Curve, P, k, windows: int = COMB_WINDOWS):
+    """k*P over the low `windows` 4-bit windows (all 64 by default): the
+    Straus ladder with one source.  Plain version of the `scalar_mul`
+    kernel."""
+    return _multi_ladder(curve, P[None], [k], windows)
 
 
 def dual_mul_windows_plain(curve: Curve, P1, k1, P2, k2, windows: int):
@@ -248,6 +258,25 @@ def base_mul_add_glv_plain(curve: Curve, P1, t1, P2, t2, s1, s2, sflags,
     return acc
 
 
+def base_mul_add_plain(curve: Curve, s, P, t):
+    """g^s * P^t without GLV, one doubling chain over the full scalars.
+    Plain version of the `base_mul_add` kernel.
+
+    Per window, most significant first: 4 doublings, the add of the
+    constant window-0 entry s_w*G (affine, Z = 1, the table the kernel
+    reads), then the add of the per-lane entry t_w*P.
+    """
+    g0 = curve.tensor("g0_table", P.device)            # (16, 3, L)
+    table = _build_table(curve, P)
+    ds, dt = window_digits(s), window_digits(t)
+    acc = infinity(P.device, P.shape[:-2])
+    for w in reversed(range(COMB_WINDOWS)):
+        acc = _dbl4(curve, acc)
+        acc = add(curve, acc, g0[ds[w]])
+        acc = add(curve, acc, _select_entry(table, dt[w]))
+    return acc
+
+
 # --------------------------------------------------------------------------
 # dispatch by device: CPU tensors take the plain version, any other device
 # launches the kernel (which raises where it cannot run)
@@ -267,6 +296,13 @@ def mul_comb(curve: Curve, table, k):
 def mul_base(curve: Curve, k):
     """Fixed-base scalar mult k*G via the precomputed comb table."""
     return mul_comb(curve, curve.tensor("comb_table", k.device), k)
+
+
+def scalar_mul_windows(curve: Curve, P, k, windows: int = COMB_WINDOWS):
+    """k*P over `windows` 4-bit windows, without GLV (`pallas_ec.scalar_mul`)."""
+    if _on_cpu(P):
+        return scalar_mul_windows_plain(curve, P, k, windows)
+    return cuda_ec.scalar_mul(P, k, windows)
 
 
 def dual_mul_windows(curve: Curve, P1, k1, P2, k2, windows: int):
@@ -291,6 +327,21 @@ def base_mul_add_glv(curve: Curve, P1, t1, P2, t2, s1, s2, sflags,
     return cuda_ec.base_mul_add_glv(
         P1, t1, P2, t2, s1, s2, sflags, curve.tensor("g0_tables", P1.device),
         windows)
+
+
+def base_mul_add_windows(curve: Curve, s, P, t):
+    """g^s * P^t without GLV, 64 windows (`pallas_ec.base_mul_add`)."""
+    if _on_cpu(P):
+        return base_mul_add_plain(curve, s, P, t)
+    return cuda_ec.base_mul_add(s, P, t, curve.tensor("g0_table", P.device))
+
+
+def pt_add(curve: Curve, P, Q):
+    """One complete add per lane, as a kernel launch on the card (the TPU's
+    `_pt_add_kernel`); `add` is its plain version."""
+    if _on_cpu(P):
+        return add(curve, P, Q)
+    return cuda_ec.pt_add(P, Q)
 
 
 # --------------------------------------------------------------------------
@@ -357,15 +408,21 @@ def _broadcast(points, scalars):
 
 
 def scalar_mul(curve: Curve, P, k):
-    """Variable-base k*P as k1*P + k2*phi(P): a 33-window dual ladder."""
+    """Variable-base k*P as k1*P + k2*phi(P): a 33-window dual ladder; on a
+    curve without GLV the 64-window ladder."""
     (P,), (k,) = _broadcast([P], [k])
+    if curve.glv is None:
+        return scalar_mul_windows(curve, P, k, COMB_WINDOWS)
     P1, k1, P2, k2 = _glv_split_point(curve, P, k)
     return dual_mul_windows(curve, P1, k1, P2, k2, GLV_WINDOWS)
 
 
 def dual_mul(curve: Curve, P, kp, Q, kq):
-    """kp*P + kq*Q as a four-half-scalar shared-doubling ladder."""
+    """kp*P + kq*Q as a four-half-scalar shared-doubling ladder; on a curve
+    without GLV the 64-window dual ladder."""
     (P, Q), (kp, kq) = _broadcast([P, Q], [kp, kq])
+    if curve.glv is None:
+        return dual_mul_windows(curve, P, kp, Q, kq, COMB_WINDOWS)
     P1, kp1, P2, kp2 = _glv_split_point(curve, P, kp)
     Q1, kq1, Q2, kq2 = _glv_split_point(curve, Q, kq)
     return quad_mul_windows(curve, P1, kp1, P2, kp2, Q1, kq1, Q2, kq2,
@@ -373,8 +430,11 @@ def dual_mul(curve: Curve, P, kp, Q, kq):
 
 
 def base_mul_add(curve: Curve, s, P, t):
-    """g^s * P^t with both scalars GLV-split."""
+    """g^s * P^t with both scalars GLV-split; on a curve without GLV one
+    64-window chain over the full scalars."""
     (P,), (s, t) = _broadcast([P], [s, t])
+    if curve.glv is None:
+        return base_mul_add_windows(curve, s, P, t)
     P1, t1, P2, t2 = _glv_split_point(curve, P, t)
     s1, ss1, s2, ss2 = glv_decompose(curve, s)
     sflags = torch.stack([ss1, ss2], dim=-1).to(F.DTYPE)

@@ -19,17 +19,16 @@ CPU generator gives the same nonces on every device.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import nizk
 from ..curves import Curve
 from ..ops import ec
 from ..ops import field as F
+from .phases import phase_runner
 
 LIMBS = F.LIMBS
 
@@ -172,14 +171,19 @@ def verify_round_one_batch(curve: Curve, pub: RoundOnePub, ids):
     return ok[0] & ok[1]
 
 
-def avnet_keys_steps(curve: Curve, X):
-    """Y_i = sum_{j<i} X_j - sum_{j>i} X_j for all steps and bidders:
-    X (c, n, 3, L) -> (c, n, 3, L), from one prefix scan P and the total S as
-    Y_i = 2 P_i - X_i - S."""
-    P = ec.ec_prefix_scan(curve, X, dim=1)
-    S = P[:, -1:]
+def avnet_keys(curve: Curve, X):
+    """Y_i = sum_{j<i} X_j - sum_{j>i} X_j along the party axis 0 (any
+    trailing batch axes): from one inclusive prefix scan P (the JAX
+    package's tree) and the total S = P_n, Y_i = 2 P_i - X_i - S."""
+    P = ec.ec_prefix_scan(curve, X, dim=0)
+    S = P[-1:]
     neg_part = ec.neg(curve, ec.add(curve, X, S.expand(X.shape)))
     return ec.add(curve, ec.add(curve, P, P), neg_part)
+
+
+def avnet_keys_steps(curve: Curve, X):
+    """`avnet_keys` for all steps at once: X (c, n, 3, L) -> (c, n, 3, L)."""
+    return avnet_keys(curve, X.movedim(1, 0)).movedim(0, 1)
 
 
 def _b01(curve: Curve, Y_all, R_all, x_all):
@@ -272,17 +276,7 @@ def run_auction(curve: Curve, bids, c: int, verify: bool = True,
     bits = torch.as_tensor(bids_to_bits(bids, c), device=device)
     ids = torch.arange(n, device=device)
 
-    def phase(name, fn, *args):
-        with record_function(f"seal.{name}"):
-            if times is None:
-                return fn(*args)
-            t0 = time.perf_counter()
-            out = fn(*args)
-            if bits.is_cuda:
-                torch.cuda.synchronize(bits.device)
-            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
-            return out
-
+    phase = phase_runner("seal", times, bits.device)
     ok = torch.ones((), dtype=torch.bool, device=bits.device)
     commit_pub, commit_sec = phase("commit", commit, curve, generator, bits, ids)
     if verify:

@@ -1,6 +1,7 @@
 """Properties of the PyTorch port as a package: it needs no JAX, its entry
 points run on the GPU unless asked for the CPU, and a CUDA tensor never
-falls back to the plain path."""
+falls back to the plain path.  The kernel validator on the plain versions
+is tests/test_torch_validate.py."""
 
 import subprocess
 import sys
@@ -13,7 +14,7 @@ import torch
 from privacy_auction_tpu_torch import interop, nizk
 from privacy_auction_tpu_torch.curves import SECP256K1 as C
 from privacy_auction_tpu_torch.ops import cuda_ec, ec
-from privacy_auction_tpu_torch.protocols import seal
+from privacy_auction_tpu_torch.protocols import ccs22, seal
 
 torch.set_num_threads(1)
 
@@ -24,6 +25,8 @@ MODULES = [
     "privacy_auction_tpu_torch.ops.ec", "privacy_auction_tpu_torch.ops.field",
     "privacy_auction_tpu_torch.ops.sha256",
     "privacy_auction_tpu_torch.ops.validate",
+    "privacy_auction_tpu_torch.protocols.ccs22",
+    "privacy_auction_tpu_torch.protocols.phases",
     "privacy_auction_tpu_torch.protocols.seal",
     "privacy_auction_tpu_torch.utils.host_curve",
     "privacy_auction_tpu_torch.utils.log",
@@ -48,20 +51,43 @@ def _check_cuda_entry_points_raise_without_a_card():
     with pytest.raises((RuntimeError, AssertionError)):
         seal.run_auction(C, [1, 2], 2, generator=torch.Generator().manual_seed(0))
     with pytest.raises((RuntimeError, AssertionError)):
+        ccs22.run_auction(C, [1, 2], 2,
+                          generator=torch.Generator().manual_seed(0))
+    with pytest.raises((RuntimeError, AssertionError)):
         interop.to_torch(np.zeros((2, 16), np.uint32))
     with pytest.raises((RuntimeError, AssertionError)):
         ec.encode_host_points([None])
-    with pytest.raises(ValueError, match="CUDA"):
-        cuda_ec.quad_mul(*[torch.zeros((1, 3, 16), dtype=torch.int64),
-                           torch.zeros((1, 16), dtype=torch.int64)] * 4, 33)
+    P, k = torch.zeros((1, 3, 16), dtype=torch.int64), torch.zeros(
+        (1, 16), dtype=torch.int64)
+    for launch in (lambda: cuda_ec.quad_mul(*[P, k] * 4, 33),
+                   lambda: cuda_ec.scalar_mul(P, k),
+                   lambda: cuda_ec.base_mul_add(k, P, k, C.tensor("g0_table", "cpu")),
+                   lambda: cuda_ec.pt_add(P, P)):
+        with pytest.raises(ValueError, match="CUDA"):
+            launch()
 
 
-def _check_cli_exit_codes(capsys):
+def _check_cli_exit_codes(capsys, monkeypatch):
     from privacy_auction_tpu_torch import cli
 
     assert cli.main(["seal", "2", "1", "--seed", "3", "--no-verify",
                      "--device", "cpu"]) == 0
     assert "OK: maxBid" in capsys.readouterr().out
+    # ccs22: the exit code follows the auction's max bid (the auction itself
+    # is held to the JAX package in tests/test_torch_ccs22*.py)
+    runs = []
+
+    def auction(curve, bids, c, eval_id, generator, device, times):
+        runs.append((eval_id, device))
+        return ccs22.AuctionResult(max_bid=max(bids) - len(runs) + 1,
+                                   deciding_bits=np.zeros(c, np.uint8),
+                                   board=None)
+
+    monkeypatch.setattr(ccs22, "run_auction", auction)
+    args = ["ccs22", "5", "3", "--seed", "3", "--device", "cpu"]
+    assert cli.main(args) == 0 and "OK: maxBid" in capsys.readouterr().out
+    assert cli.main(args) == 1
+    assert runs[0] == runs[1] and 0 <= runs[0][0] < 5 and runs[0][1] == "cpu"
     with pytest.raises(SystemExit) as e:
         cli.main(["seal", "2", "1", "--device", "tpu"])
     assert e.value.code == 2
@@ -89,11 +115,11 @@ def _check_interop_round_trip_keeps_boards_by_value():
 # One test per file: pytest-xdist (--dist loadfile) queues files by test
 # count, and one-test files go last, after the long-running files of the
 # tier-1 run have been handed out (see ROADMAP.md, Queue 3).
-def test_port_package_contract(capsys):
+def test_port_package_contract(capsys, monkeypatch):
     """No JAX, no CPU fallback for CUDA work, the CLI's exit codes, and
     boards by value through interop."""
     _check_port_imports_no_jax()
     if not torch.cuda.is_available():
         _check_cuda_entry_points_raise_without_a_card()
-    _check_cli_exit_codes(capsys)
+    _check_cli_exit_codes(capsys, monkeypatch)
     _check_interop_round_trip_keeps_boards_by_value()

@@ -1,9 +1,12 @@
 """Write the golden vectors that hold the PyTorch port to the JAX package.
 
-    JAX_PLATFORMS=cpu python tools/torch_golden.py [--out tests/data/torch_golden_seal.npz]
+    JAX_PLATFORMS=cpu python tools/torch_golden.py [--only seal ccs22 ladders64]
 
-Runs the JAX package (`privacy_auction_tpu`) on the CPU from seeded numpy
-inputs and records, for a two-bidder, two-bit SEAL board: the random words
+Runs the JAX package (`privacy_auction_tpu`) on the CPU from seeded inputs
+and writes `tests/data/torch_golden_<name>.npz` for each name (all three by
+default).
+
+`seal` records, for a two-bidder, two-bit SEAL board: the random words
 and the scalars they give, the commitments with their PoKDLog and PoWFCom
 proofs, the round-1 keys with their PoKDLogs, the AV-net keys and both
 ciphertext candidates, one Stage1 and one Stage2 proof, the nonces each
@@ -11,8 +14,26 @@ proof generator drew, Fiat-Shamir challenges, and the outcome of a verified
 three-bidder auction.  `tests/test_torch_seal*.py` feed the same inputs and
 nonces to the port and require the same bytes.
 
+`ccs22` records the CRS (g1, h and a digest of each comb table), and for a
+three-bidder, two-bit CCS22 auction every scalar the JAX driver drew (OT
+betas, the setup secrets x, r, s, t and the commitment blinding, the
+evaluator's OT nonces and the senders' dummy messages), the setup messages
+at evaluators 0 and 2, the precomputed point streams, each step's OT
+messages and announced bit, and `max_bid`; the per-phase functions
+(`setup`, `bes_encode`, one OT round trip at each choice bit) with their
+nonces; and the drawn scalars and outcome of the edge-bid auctions of
+tests/test_ccs22.py.  `tests/test_torch_ccs22*.py` feed the port the same
+scalars and require the same limbs.
+
+`ladders64` records the TPU kernels that only the kernel validator reaches
+(`pallas_ec.scalar_mul`, `dual_mul` at 64 windows, `base_mul_add`, and one
+`_pt_add_kernel` pass) in Pallas interpret mode at the validator's edge
+lanes, beside the JAX package's plain XLA ladders for a curve without GLV.
+`tests/test_torch_ec_*64.py` hold the port's plain versions to them.
+
 Why offline: compiling the JAX NIZK and SEAL code on the CPU is what makes
-the repository's tier-1 test run slow.  With six pytest-xdist workers on an
+the repository's tier-1 test run slow (and interpreting a 64-window Pallas
+ladder takes minutes).  With six pytest-xdist workers on an
 8-core x86 CPU, tests/test_nizk.py took 449 s for 6 tests and
 tests/test_seal.py 463 s for 7, in a run that took 1446 s of its 1470 s
 limit.  The comparison is the same one a live test would make -- the JAX
@@ -24,8 +45,11 @@ uint16.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
 import os
 import pathlib
+import random
 import sys
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -40,21 +64,22 @@ import numpy as np  # noqa: E402
 from privacy_auction_tpu import nizk  # noqa: E402
 from privacy_auction_tpu.curves import SECP256K1 as CURVE  # noqa: E402
 from privacy_auction_tpu.ops import ec, field as F  # noqa: E402
-from privacy_auction_tpu.protocols import seal  # noqa: E402
+from privacy_auction_tpu.ops import pallas_ec as PE  # noqa: E402
+from privacy_auction_tpu.protocols import ccs22, seal  # noqa: E402
 
 SEED = 20261016
 BOARD_BIDS = (2, 3)          # bits [[1, 0], [1, 1]]: Stage1 at step 0, Stage2 at step 1
 AUCTION_BIDS = (2, 1, 3)     # MSB set, so the auction runs Stage1 then Stage2
 AUCTION_C = 2
+CCS22_BIDS = (2, 1, 3)       # bits [[1, 0], [0, 1], [1, 1]]
+CCS22_C = 2
+CCS22_EVALS = (0, 2)
+CCS22_EDGE = ((0, 0, 0), (5, 5, 5), (7, 1, 2))   # tests/test_ccs22.py:74
+CCS22_EDGE_C = 3
+DATA = pathlib.Path(__file__).resolve().parents[1] / "tests" / "data"
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=str(pathlib.Path(__file__).resolve()
-                                         .parents[1] / "tests" / "data"
-                                         / "torch_golden_seal.npz"))
-    args = ap.parse_args()
-    jax.config.update("jax_platforms", "cpu")
+def seal_arrays():
     fn = CURVE.fn
     rng = np.random.default_rng(SEED)
     out = {}
@@ -152,7 +177,149 @@ def main():
     out["auction_max_bid"] = np.asarray(res.max_bid)
     out["auction_verified"] = np.asarray(res.verified)
     out["auction_deciding_bits"] = np.asarray(res.deciding_bits)
+    return out
 
+
+def ccs22_draws(key, n, c):
+    """Every scalar `ccs22._run_fused` draws from `key`, in its key order."""
+    fn = CURVE.fn
+    keys = jax.random.split(key, 4)
+    k_sec, k_rcom = jax.random.split(keys[1])
+    sec4 = F.random(fn, k_sec, (4, n, c))
+    return dict(beta=F.random(fn, keys[0], (n, c)), x=sec4[0], r=sec4[1],
+                s=sec4[2], t=sec4[3], rcom=F.random(fn, k_rcom, (n,)),
+                k_rand=F.random(fn, keys[2], (n, c)),
+                m1k=F.random(fn, keys[3], (n, c)))
+
+
+def ccs22_arrays():
+    fn = CURVE.fn
+    out = {}
+
+    def put(prefix, tup):
+        for k, v in tup._asdict().items():
+            out[f"{prefix}.{k}"] = np.asarray(v)
+
+    # ---- CRS ----------------------------------------------------------------
+    pp = ccs22.make_pub_params(CURVE)
+    out["crs.g1"], out["crs.h"] = np.asarray(pp.g1), np.asarray(pp.h)
+    for name in ("g1_table", "h_table"):
+        raw = np.ascontiguousarray(np.asarray(getattr(pp, name)).astype("<u2"))
+        out[f"crs.{name}_sha256"] = np.frombuffer(
+            hashlib.sha256(raw.tobytes()).digest(), np.uint8)
+
+    # ---- one fused auction at two evaluators --------------------------------
+    bids = list(CCS22_BIDS)
+    n, c = len(bids), CCS22_C
+    bits = jnp.asarray(seal.bids_to_bits(bids, c))
+    bid_scalars = jnp.asarray(F.ints_to_limbs(bids))
+    key = jax.random.key(SEED + 10)
+    draws = ccs22_draws(key, n, c)
+    for k, v in draws.items():
+        out[f"draw.{k}"] = np.asarray(v)
+    out["bids"], out["c"], out["seed"] = np.asarray(bids), np.asarray(c), np.asarray(SEED)
+    out["evals"] = np.asarray(CCS22_EVALS)
+    keys = jax.random.split(key, 4)
+    for eid in CCS22_EVALS:
+        pub, sec = ccs22._jit_setup(CURVE, keys[1], pp, bid_scalars, c,
+                                    jnp.asarray(eid, jnp.int32), draws["beta"])
+        put(f"e{eid}.setup_pub", pub)
+        announced, r1, ots = ccs22._run_fused(CURVE, key, pp, bid_scalars,
+                                              bits, eid)
+        out[f"e{eid}.announced"] = np.asarray(announced)
+        put(f"e{eid}.otr1", r1)
+        put(f"e{eid}.ots", ots)
+        res = ccs22.run_auction(CURVE, key, bids, c, eid)
+        out[f"e{eid}.max_bid"] = np.asarray(res.max_bid)
+        out[f"e{eid}.deciding_bits"] = np.asarray(res.deciding_bits)
+    pre = ccs22._precompute(CURVE, keys[2:4], pp, pub.X, sec, draws["beta"])
+    for name, v in zip(("enc0", "enc1", "T2", "M1", "gb", "hb", "z", "bz", "E",
+                        "m0a"), pre):
+        out[f"pre.{name}"] = np.asarray(v)
+
+    # ---- the per-phase functions of the metered driver ------------------------
+    d = bits[:, 0]
+    B = jax.jit(lambda *a: ccs22.bes_encode(CURVE, *a))(
+        pub.X[:, 0], draws["x"][:, 0], draws["r"][:, 0], d)
+    out["phase.d"], out["phase.B"] = np.asarray(d), np.asarray(B)
+    for eid in (0, 1):            # choice bits alpha = d[0] = 1, d[1] = 0
+        k_r1, k_s = jax.random.split(jax.random.key(SEED + 20 + eid))
+        out[f"ot{eid}.k"] = np.asarray(F.random(fn, k_r1, (n,)))
+        out[f"ot{eid}.m1k"] = np.asarray(F.random(fn, k_s, (n,)))
+        r1 = ccs22._jit_otr1(CURVE, k_r1, pp, draws["beta"][:, 0], d[eid])
+        ots = ccs22._jit_ots(CURVE, k_s, pp, r1, B, draws["s"][:, 0],
+                             draws["t"][:, 0])
+        ann = ccs22._jit_otr2(CURVE, ots, draws["beta"][:, 0], B, d, eid)
+        put(f"ot{eid}.otr1", r1)
+        put(f"ot{eid}.ots", ots)
+        out[f"ot{eid}.announced"] = np.asarray(ann)
+
+    # ---- edge bids (tests/test_ccs22.py) ----------------------------------------
+    for i, ebids in enumerate(CCS22_EDGE):
+        key = jax.random.key(10)
+        for k, v in ccs22_draws(key, len(ebids), CCS22_EDGE_C).items():
+            out[f"edge{i}.draw.{k}"] = np.asarray(v)
+        res = ccs22.run_auction(CURVE, key, list(ebids), CCS22_EDGE_C, 0)
+        out[f"edge{i}.bids"] = np.asarray(ebids)
+        out[f"edge{i}.max_bid"] = np.asarray(res.max_bid)
+        out[f"edge{i}.deciding_bits"] = np.asarray(res.deciding_bits)
+    return out
+
+
+def ladders64_arrays():
+    """The validator's direct ladders in Pallas interpret mode, plus the
+    JAX package's XLA ladders on a copy of secp256k1 that has no GLV
+    parameters (the path `ec.scalar_mul` / `dual_mul` / `base_mul_add` take
+    on such a curve)."""
+    host = CURVE.host
+    rng = random.Random(SEED)
+    ks = [0, 1, host.n - 1, rng.randrange(host.n)]
+    ts = [1, 0, rng.randrange(host.n), rng.randrange(host.n)]
+    Ps = [host.mul(rng.randrange(1, host.n), host.g) for _ in ks]
+    Qs = [host.mul(rng.randrange(1, host.n), host.g) for _ in ks]
+    Ps[2] = Qs[2] = None                 # the point-at-infinity input lane
+    k, t = jnp.asarray(F.ints_to_limbs(ks)), jnp.asarray(F.ints_to_limbs(ts))
+    P = jnp.asarray(ec.encode_host_points(Ps))
+    Q = jnp.asarray(ec.encode_host_points(Qs))
+    out = {"k": np.asarray(k), "t": np.asarray(t), "P": np.asarray(P),
+           "Q": np.asarray(Q)}
+
+    PE._INTERPRET = True
+    out["pallas.scalar_mul"] = np.asarray(jax.jit(
+        lambda P, k: PE.scalar_mul(CURVE, P, k))(P, k))
+    out["pallas.dual_mul"] = np.asarray(jax.jit(
+        lambda P, k, Q, t: PE.dual_mul(CURVE, P, k, Q, t))(P, k, Q, t))
+    out["pallas.base_mul_add"] = np.asarray(jax.jit(
+        lambda s, P, t: PE.base_mul_add(CURVE, s, P, t))(k, P, t))
+    # pt_add lanes: P+Q, P+P, P+(-P), P+inf, inf+Q
+    A = jnp.stack([P[0], P[1], P[3], P[0], P[2]])
+    Bq = jnp.stack([Q[0], P[1], ec.neg(CURVE, P[3]), P[2], Q[1]])
+    nl = A.shape[0]
+    out["add.P"], out["add.Q"] = np.asarray(A), np.asarray(Bq)
+    out["pallas.pt_add"] = np.asarray(jax.jit(lambda A, Bq: PE._from_rows_pt(
+        PE._grid_call(PE._pt_add_kernel, CURVE, nl,
+                      [PE._to_rows_pt(A, nl), PE._to_rows_pt(Bq, nl)], (2, 2),
+                      const_inputs=(PE._mc(CURVE),)), nl))(A, Bq))
+    PE._INTERPRET = False
+
+    nog = dataclasses.replace(CURVE, name="secp256k1-without-glv")
+    nog.__dict__["glv"] = None
+    out["xla.scalar_mul"] = np.asarray(jax.jit(
+        lambda P, k: ec.scalar_mul(nog, P, k))(P, k))
+    out["xla.dual_mul"] = np.asarray(jax.jit(
+        lambda P, k, Q, t: ec.dual_mul(nog, P, k, Q, t))(P, k, Q, t))
+    out["xla.base_mul_add"] = np.asarray(jax.jit(
+        lambda s, P, t: ec.base_mul_add(nog, s, P, t))(k, P, t))
+    out["xla.pt_add"] = np.asarray(jax.jit(
+        lambda A, Bq: ec.add(CURVE, A, Bq))(A, Bq))
+    return out
+
+
+BUILDERS = {"seal": seal_arrays, "ccs22": ccs22_arrays,
+            "ladders64": ladders64_arrays}
+
+
+def save(path: pathlib.Path, out: dict):
     packed = {}
     for k, val in out.items():
         val = np.asarray(val)
@@ -161,10 +328,22 @@ def main():
                 raise ValueError(f"{k}: not 16-bit limbs")
             val = val.astype(np.uint16)
         packed[k] = val
-    pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(args.out, **packed)
-    print(f"wrote {args.out}: {len(packed)} arrays, "
-          f"{pathlib.Path(args.out).stat().st_size} bytes")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **packed)
+    print(f"wrote {path}: {len(packed)} arrays, {path.stat().st_size} bytes",
+          flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", nargs="+", choices=sorted(BUILDERS),
+                    default=sorted(BUILDERS))
+    ap.add_argument("--out-dir", default=str(DATA))
+    args = ap.parse_args()
+    jax.config.update("jax_platforms", "cpu")
+    for name in args.only:
+        save(pathlib.Path(args.out_dir) / f"torch_golden_{name}.npz",
+             BUILDERS[name]())
 
 
 if __name__ == "__main__":
