@@ -9,17 +9,21 @@ package, in eight phases; any failure raises and the exit code is non-zero:
 1. the card's name and power limit (nvidia-smi);
 2. builds the seven EC kernels from `privacy_auction_tpu_torch/csrc/` with
    nvcc (sm_90a) into `build/cuda_ec/`, with ptxas' register and spill
-   report;
+   report; then reads every table select of every kernel in the SASS
+   (cuobjdump, next to nvcc): it fails unless each select loads all 16
+   entries in straight-line code and no load is predicated;
 3. the full kernel validator (the 64-window ladders, `mul_base`, the GLV
    dispatch and `pt_add`, edge lanes against the host oracle) with the
    launch counts set to 0 before it and read after it: every kernel must
    have run; then each of the eight kernel rows (`dual_mul` at 33 and at 64
    windows) at 4096 lanes against its plain PyTorch version on the card
    (exactly: integer limbs, tolerance 0) and sampled lanes against the host
-   oracle;
+   oracle; the two group kernels (`quad_mul`, `base_mul_add_glv`) also at
+   160, 320, 1280, 2048 and 8192 lanes;
 4. verified SEAL auctions at 20x32 and 128x32 bidders x bits from a seed:
    each must verify and find the plaintext maximum, and each of its four
-   kernels' launch counts must rise during each auction;
+   kernels' launch counts must rise during each auction (printed, with the
+   launches by kernel and lane count);
 5. CCS22 auctions at 20x32 and 64x32 from a seed with a random evaluator:
    each must find the plaintext maximum, `mul_comb`, `dual_mul` and
    `quad_mul` must rise and no other kernel may run (the protocol has no
@@ -29,10 +33,13 @@ package, in eight phases; any failure raises and the exit code is non-zero:
 7. tools/bench_ladder_torch.py at 8192 lanes (64-window ladders beside
    their GLV forms);
 8. per kernel row, at a shape the 128x32 SEAL auction gives it (8192 lanes
-   for the kernels that only the validator reaches): the kernel's time
-   (CUDA events), the plain version's time, both outputs compared exactly
-   (`max_abs_err` must be 0), and the bound from the 32-bit integer
-   multiplies or the bytes it needs.
+   for the kernels that only the validator reaches), and the group kernels
+   at the 20x32 auction's shapes too (`quad_mul` at 160, 320 and 2048
+   lanes, `base_mul_add_glv` at 1280 and 8192): the kernel's time (CUDA
+   events), the plain version's time, both outputs compared exactly
+   (`max_abs_err` must be 0), the bound from the 32-bit integer multiplies
+   or the bytes it needs, and ptxas' registers, stack and spills with the
+   shared memory a block takes.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and last the line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when no
@@ -63,6 +70,7 @@ SAMPLED = 8
 INT_MUL_RATE = 64 * 132 * 1.98e9
 HBM_RATE = 3.35e12   # bytes/s, NVIDIA H100 SXM data sheet
 SOURCE = "privacy_auction_tpu_torch/csrc/ec_ladders.cu"
+GROUP_SOURCE = "privacy_auction_tpu_torch/csrc/ec_group.cuh"
 REPLACES = {
     "mul_comb": "privacy_auction_tpu/ops/pallas_ec.py:538",
     "dual_mul": "privacy_auction_tpu/ops/pallas_ec.py:366",
@@ -79,6 +87,13 @@ ROWS = tuple(REPLACES)
 SEAL_KERNELS = ROWS[:4]
 CCS22_KERNELS = ("mul_comb", "dual_mul", "quad_mul")
 VALIDATOR_ROWS = ROWS[4:]      # the path of the kernels only it reaches
+GROUP_KERNELS = ("quad_mul", "base_mul_add_glv")
+GROUP_LANES = (160, 320, 1280, 2048, 8192)
+# the group kernels' timed shapes beside their rows: quad_mul's Stage1 and
+# Stage2 proof passes of the 20x32 auction (8n, 16n) and Stage2 at 128x32;
+# base_mul_add_glv's round-1 check (2cn) at 20x32 and 128x32
+GROUP_TIMED = (("quad_mul", 160), ("quad_mul", 320), ("quad_mul", 2048),
+               ("base_mul_add_glv", 1280), ("base_mul_add_glv", 8192))
 
 
 def log(msg):
@@ -114,13 +129,25 @@ def main() -> int:
     built = ("loaded an earlier build" if b.seconds is None
              else f"nvcc {b.seconds:.1f} s")
     log(f"[build] {built} -> {b.path}")
-    entry = None
-    for line in b.ptxas_log.splitlines():
-        if "Function properties for" in line or "Compiling entry" in line:
-            entry = next((k for k in cuda_ec.KERNELS if f"{k}_kernel" in line),
-                         None)
-        elif entry and ("stack frame" in line or "Used" in line):
-            log(f"[ptxas] {entry}_kernel: {line.split(':', 1)[-1].strip()}")
+    resources = b.resources()
+    for key, r in resources.items():
+        log(f"[ptxas] {key}: {r.get('registers')} registers, "
+            f"{r.get('stack_bytes')} B stack frame, {r.get('spill_stores')} B "
+            f"spill stores, {r.get('spill_loads')} B spill loads")
+
+    # ---- 2b. the table selects in SASS ----------------------------------------
+    selects = cuda_ec.select_sass(b)
+    for r in selects:
+        log(f"[sass] {r['variant']} {r['select']}: {r['instructions']} "
+            f"instructions, {r['loads']} loads ({r['predicated_loads']} "
+            f"predicated) reading {r['table_bytes']} B of table, "
+            f"{r['branches']} branches: {'ok' if r['ok'] else 'FAILED'}")
+    unchecked = set(cuda_ec.SELECT_KERNELS) - {r["kernel"] for r in selects}
+    bad = [f"{r['variant']}:{r['select']}" for r in selects if not r["ok"]]
+    if unchecked or bad:
+        raise AssertionError(f"selects: {sorted(unchecked)} not found in the "
+                             f"SASS, {bad} missing or not constant-time as "
+                             "compiled")
 
     # ---- 3. validator (this slice's path) and 4096-lane parity ---------------
     cuda_ec.reset_launches()
@@ -206,23 +233,29 @@ def main() -> int:
                                                    GLV_WINDOWS)),
                 want)
 
-    for name in ROWS:
-        run_k, run_p, want = kernel_inputs(name, CHECK_LANES)
+    parity = [(name, CHECK_LANES) for name in ROWS]
+    parity += [(name, lanes) for name in GROUP_KERNELS for lanes in GROUP_LANES]
+    for name, lanes in parity:
+        run_k, run_p, want = kernel_inputs(name, lanes)
         got = run_k()
         ref = run_p()
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             bad = int((got != ref).any(-1).any(-1).sum())
-            raise AssertionError(f"{name}: {bad} of {CHECK_LANES} lanes differ "
+            raise AssertionError(f"{name}: {bad} of {lanes} lanes differ "
                                  f"from the plain version")
-        for i in rng.sample(range(CHECK_LANES), SAMPLED):
+        for i in rng.sample(range(lanes), min(SAMPLED, lanes)):
             if ec.decode_host_point(C, got[i]) != want(i):
                 raise AssertionError(f"{name}: lane {i} disagrees with host_curve")
-        log(f"[parity] {name}: {CHECK_LANES} lanes equal the plain version, "
+        log(f"[parity] {name}: {lanes} lanes equal the plain version, "
             f"{SAMPLED} sampled lanes equal host_curve")
+
+    def by_lanes(counts):
+        return {f"{k}@{n}": v for (k, n), v in sorted(counts.items())}
 
     # ---- 4. verified auctions (the main path) -----------------------------------
     auction_launches = {}
+    auction_lanes = {}
     for n, c in AUCTIONS:
         bids = [rng.randrange(1 << c) for _ in range(n)]
         times = {}
@@ -240,9 +273,12 @@ def main() -> int:
         if idle:
             raise AssertionError(f"SEAL {n}x{c}: kernels {idle} never launched")
         auction_launches[(n, c)] = counts
+        auction_lanes[(n, c)] = dict(cuda_ec.launch_lanes)
         log(f"[seal {n}x{c}] verified, max_bid={res.max_bid}, wall {wall:.3f} s; "
             "phases " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()))
         log(f"[seal {n}x{c}] launches {json.dumps(counts)}")
+        log(f"[seal {n}x{c}] launches by kernel@lanes "
+            f"{json.dumps(by_lanes(cuda_ec.launch_lanes))}")
 
     # ---- 5. CCS22 auctions ---------------------------------------------------------
     ccs22_launches = {}
@@ -271,6 +307,8 @@ def main() -> int:
             f"{wall:.3f} s; phases " + ", ".join(f"{k} {v:.3f} s"
                                                  for k, v in times.items()))
         log(f"[ccs22 {n}x{c}] launches {json.dumps(counts)}")
+        log(f"[ccs22 {n}x{c}] launches by kernel@lanes "
+            f"{json.dumps(by_lanes(cuda_ec.launch_lanes))}")
         if (n, c) == CCS22_AUCTIONS[0]:
             # the steps once more, from the same draws, with every host
             # synchronization an error: nothing is read back between steps
@@ -361,8 +399,9 @@ def main() -> int:
     table_bytes = {"mul_comb": 64 * 16 * 384, "base_mul_add_glv": 2 * 16 * 384,
                    "base_mul_add": 16 * 384}
     report = []
-    for name in ROWS:
-        lanes = shapes[name]
+    timed = [(name, shapes[name], False) for name in ROWS]
+    timed += [(name, lanes, True) for name, lanes in GROUP_TIMED]
+    for name, lanes, extra in timed:
         run_k, run_p, _ = kernel_inputs(name, lanes)
         run_k()
         torch.cuda.synchronize()
@@ -387,20 +426,33 @@ def main() -> int:
         bytes_s = (lanes * bytes_per_lane[name]
                    + table_bytes.get(name, 0)) / HBM_RATE
         path = ("seal 20x32" if name in SEAL_KERNELS else "validator")
+        row = name.removesuffix("_64")
+        if name in GROUP_KERNELS:
+            row += f"<{cuda_ec.launch_shape(name, lanes)[0]}>"
         report.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": f"{name}@{lanes}" if extra else name, "route": "cuda",
+            "source": GROUP_SOURCE if name in GROUP_KERNELS else SOURCE,
             "replaces": REPLACES[name],
-            "launches": (auction_launches[AUCTIONS[0]][name]
+            "launches": (auction_lanes[AUCTIONS[0]].get((name, lanes), 0) if extra
+                         else auction_launches[AUCTIONS[0]][name]
                          if name in SEAL_KERNELS else validator_launches[name]),
             "launches_path": path,
-            "launches_seal_128x32": auction_launches[AUCTIONS[-1]][name],
+            "launches_seal_128x32": (
+                auction_lanes[AUCTIONS[-1]].get((name, lanes), 0) if extra
+                else auction_launches[AUCTIONS[-1]][name]),
             **{f"launches_ccs22_{a}x{b}": ccs22_launches[(a, b)][name]
-               for a, b in CCS22_AUCTIONS},
+               for a, b in CCS22_AUCTIONS if not extra},
             "launches_validator": validator_launches[name],
-            "lanes": lanes, "windows": windows.get(name), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "lanes": lanes, "windows": windows.get(name), "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "library_ms": None,
+            **resources.get(row, {}),
+            "threads_a_lane": (cuda_ec.launch_shape(name, lanes)[0]
+                               if name in GROUP_KERNELS else 1),
+            "smem_bytes": (cuda_ec.launch_shape(name, lanes)[3]
+                           if name in GROUP_KERNELS else 0),
         })
         log(f"[time] {name} at {lanes} lanes: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.1f} ms, bound {1e3 * max(ops_s, bytes_s):.4f} ms")

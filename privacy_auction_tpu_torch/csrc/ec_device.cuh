@@ -211,27 +211,144 @@ __device__ __forceinline__ Fe fe_mul_small(const Fe& a, uint32_t k) {
   return fe_fold_top(t, c);
 }
 
+// --- the shorter-latency products of the group kernels (ec_group.cuh) ---
+// Same canonical values as fe_mul and fe_mul_small; what changes is the
+// length of the dependent chain a lone warp waits on.  The product's 64
+// partial products are summed by column (independent multiplies,
+// independent columns) instead of row by row through one 64-bit
+// accumulator, and the reduction picks from two candidates whose carry
+// chains run side by side, where fe_fold_top runs three one after the
+// other.
+
+// t + top * 2^256 (t < 2^256, top < 2^34) -> canonical, from two chains off
+// t: s = t + top*C and u = s + C.  If s overflowed 2^256 the value is
+// (s mod 2^256) + C < p, which u holds (and u overflowed); otherwise the
+// value is s, or s - p = u mod 2^256 exactly when u overflowed.
+__device__ __forceinline__ Fe fe_reduce_fast(const uint32_t t[8], uint64_t top) {
+  const uint64_t lo = top * kC0;
+  uint64_t cs = (uint64_t)t[0] + lo;
+  uint64_t cu = cs + kC0;
+  Fe s, u;
+  s.w[0] = (uint32_t)cs;
+  u.w[0] = (uint32_t)cu;
+  cs = (cs >> 32) + t[1] + (top & 0xffffffffull);
+  cu = (cu >> 32) + t[1] + (top & 0xffffffffull) + 1u;
+  s.w[1] = (uint32_t)cs;
+  u.w[1] = (uint32_t)cu;
+  cs = (cs >> 32) + t[2] + (top >> 32);
+  cu = (cu >> 32) + t[2] + (top >> 32);
+  s.w[2] = (uint32_t)cs;
+  u.w[2] = (uint32_t)cu;
+#pragma unroll
+  for (int i = 3; i < 8; ++i) {
+    cs = (cs >> 32) + t[i];
+    cu = (cu >> 32) + t[i];
+    s.w[i] = (uint32_t)cs;
+    u.w[i] = (uint32_t)cu;
+  }
+  return fe_select(0u - (uint32_t)(cu >> 32), u, s);
+}
+
+// Column sums f[0..8] (each < 2^48, f[8] < 2^32) of the words of a value
+// congruent to the product, carried into 8 words and a top < 2^34, then
+// reduced.
+__device__ __forceinline__ Fe fe_carry_reduce(const uint64_t f[9]) {
+  uint32_t t[8];
+  uint64_t c = f[0];
+  t[0] = (uint32_t)c;
+#pragma unroll
+  for (int i = 1; i < 8; ++i) {
+    c = (c >> 32) + f[i];
+    t[i] = (uint32_t)c;
+  }
+  return fe_reduce_fast(t, (c >> 32) + f[8]);
+}
+
+// a * b: the 64 products are independent; column j of the 512-bit product
+// sums the low words of a_i b_{j-i} and the high words of a_i b_{j-1-i}
+// (16 terms at most, < 2^36), and the high columns fold onto the low ones
+// by 2^256 = 2^32 + 977 (mod p) before any carry runs.
+__device__ __forceinline__ Fe fe_mul_fast(const Fe& a, const Fe& b) {
+  uint64_t col[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) col[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const uint64_t p = (uint64_t)a.w[i] * b.w[k];
+      col[i + k] += (uint32_t)p;
+      col[i + k + 1] += p >> 32;
+    }
+  }
+  // sum_j col_j 2^(32j) with col_(8+i) 2^(32(8+i)) = col_(8+i) (977 + 2^32) 2^(32i)
+  uint64_t f[9];
+  f[0] = col[0] + col[8] * kC0;
+#pragma unroll
+  for (int i = 1; i < 8; ++i) f[i] = col[i] + col[8 + i] * kC0 + col[7 + i];
+  f[8] = col[15];
+  return fe_carry_reduce(f);
+}
+
+// a * k for a small constant k < 2^16.
+__device__ __forceinline__ Fe fe_mul_small_fast(const Fe& a, uint32_t k) {
+  uint64_t f[9];
+  uint64_t hi = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t p = (uint64_t)a.w[i] * k;
+    f[i] = (uint32_t)p + hi;
+    hi = p >> 32;
+  }
+  f[8] = hi;
+  return fe_carry_reduce(f);
+}
+
+// The two field layers, for the point formulas below.
+struct FieldRef {
+  static __device__ __forceinline__ Fe add(const Fe& a, const Fe& b) { return fe_add(a, b); }
+  static __device__ __forceinline__ Fe sub(const Fe& a, const Fe& b) { return fe_sub(a, b); }
+  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) { return fe_mul(a, b); }
+  static __device__ __forceinline__ Fe mul_small(const Fe& a, uint32_t k) {
+    return fe_mul_small(a, k);
+  }
+};
+
+struct FieldFast {
+  static __device__ __forceinline__ Fe add(const Fe& a, const Fe& b) { return fe_add(a, b); }
+  static __device__ __forceinline__ Fe sub(const Fe& a, const Fe& b) { return fe_sub(a, b); }
+  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) { return fe_mul_fast(a, b); }
+  static __device__ __forceinline__ Fe mul_small(const Fe& a, uint32_t k) {
+    return fe_mul_small_fast(a, k);
+  }
+};
+
 // Complete addition, RCB16 Algorithm 7 (a = 0): 12 muls, 3 small muls.
-__device__ __noinline__ Pt pt_add(const Pt& P, const Pt& Q) {
-  Fe t0 = fe_mul(P.x, Q.x);
-  Fe t1 = fe_mul(P.y, Q.y);
-  Fe t2 = fe_mul(P.z, Q.z);
-  Fe u1 = fe_mul(fe_add(P.x, P.y), fe_add(Q.x, Q.y));
-  Fe u2 = fe_mul(fe_add(P.y, P.z), fe_add(Q.y, Q.z));
-  Fe u3 = fe_mul(fe_add(P.x, P.z), fe_add(Q.x, Q.z));
-  Fe t3 = fe_sub(u1, fe_add(t0, t1));   // X1Y2 + X2Y1
-  Fe t4 = fe_sub(u2, fe_add(t1, t2));   // Y1Z2 + Y2Z1
-  Fe y3 = fe_sub(u3, fe_add(t0, t2));   // X1Z2 + X2Z1
-  Fe t0_3 = fe_mul_small(t0, 3u);
-  Fe t2b = fe_mul_small(t2, kB3);
-  Fe y3b = fe_mul_small(y3, kB3);
-  Fe z3p = fe_add(t1, t2b);
-  Fe t1m = fe_sub(t1, t2b);
+template <class Fd>
+__device__ __forceinline__ Pt pt_add_t(const Pt& P, const Pt& Q) {
+  Fe t0 = Fd::mul(P.x, Q.x);
+  Fe t1 = Fd::mul(P.y, Q.y);
+  Fe t2 = Fd::mul(P.z, Q.z);
+  Fe u1 = Fd::mul(Fd::add(P.x, P.y), Fd::add(Q.x, Q.y));
+  Fe u2 = Fd::mul(Fd::add(P.y, P.z), Fd::add(Q.y, Q.z));
+  Fe u3 = Fd::mul(Fd::add(P.x, P.z), Fd::add(Q.x, Q.z));
+  Fe t3 = Fd::sub(u1, Fd::add(t0, t1));   // X1Y2 + X2Y1
+  Fe t4 = Fd::sub(u2, Fd::add(t1, t2));   // Y1Z2 + Y2Z1
+  Fe y3 = Fd::sub(u3, Fd::add(t0, t2));   // X1Z2 + X2Z1
+  Fe t0_3 = Fd::mul_small(t0, 3u);
+  Fe t2b = Fd::mul_small(t2, kB3);
+  Fe y3b = Fd::mul_small(y3, kB3);
+  Fe z3p = Fd::add(t1, t2b);
+  Fe t1m = Fd::sub(t1, t2b);
   Pt R;
-  R.x = fe_sub(fe_mul(t3, t1m), fe_mul(t4, y3b));
-  R.y = fe_add(fe_mul(t1m, z3p), fe_mul(y3b, t0_3));
-  R.z = fe_add(fe_mul(z3p, t4), fe_mul(t0_3, t3));
+  R.x = Fd::sub(Fd::mul(t3, t1m), Fd::mul(t4, y3b));
+  R.y = Fd::add(Fd::mul(t1m, z3p), Fd::mul(y3b, t0_3));
+  R.z = Fd::add(Fd::mul(z3p, t4), Fd::mul(t0_3, t3));
   return R;
+}
+
+__device__ __noinline__ Pt pt_add(const Pt& P, const Pt& Q) {
+  return pt_add_t<FieldRef>(P, Q);
 }
 
 // Complete doubling, RCB16 Algorithm 9 (a = 0): 8 muls, 4 small muls.
@@ -266,21 +383,40 @@ __device__ __noinline__ void pt_fill_table(Pt* T, const Pt& P) {
   for (int i = 2; i < 16; ++i) T[i] = pt_add(T[i - 1], P);
 }
 
-// Constant-time T[d]: every entry is read and masked in; no address is
-// formed from the digit (the stance of _entry_select).
+// r | (w & m) for a mask m that is all ones or zero.  The AND is inline
+// PTX, so the compiler cannot see that m comes from a comparison and turn
+// the masked read of w into a load predicated on the digit.
+__device__ __forceinline__ uint32_t or_masked(uint32_t r, uint32_t w, uint32_t m) {
+  uint32_t t;
+  asm("and.b32 %0, %1, %2;" : "=r"(t) : "r"(w), "r"(m));
+  return r | t;
+}
+
+// All ones when e == d, else zero, by arithmetic on d < 16.
+__device__ __forceinline__ uint32_t digit_mask(uint32_t d, uint32_t e) {
+  return 0u - (((d ^ e) - 1u) >> 31);
+}
+
+// Constant-time T[d]: every word of all 16 entries is loaded and masked in;
+// no address is formed from the digit (the stance of _entry_select).  Fully
+// unrolled, so its SASS is straight-line code whose loads can be counted
+// (chip_smoke.py checks them: all 16 entries, none predicated).
 __device__ __noinline__ Pt pt_select16(const Pt* T, uint32_t d) {
-  Pt r;
-  uint32_t* rw = reinterpret_cast<uint32_t*>(&r);
+  uint32_t r[24];
 #pragma unroll
-  for (int k = 0; k < 24; ++k) rw[k] = 0u;
-#pragma unroll 1
+  for (int k = 0; k < 24; ++k) r[k] = 0u;
+#pragma unroll
   for (uint32_t e = 0; e < 16; ++e) {
-    const uint32_t mask = 0u - (uint32_t)(e == d);
+    const uint32_t mask = digit_mask(d, e);
     const uint32_t* tw = reinterpret_cast<const uint32_t*>(&T[e]);
 #pragma unroll
-    for (int k = 0; k < 24; ++k) rw[k] |= tw[k] & mask;
+    for (int k = 0; k < 24; ++k) r[k] = or_masked(r[k], tw[k], mask);
   }
-  return r;
+  Pt out;
+  uint32_t* ow = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int k = 0; k < 24; ++k) ow[k] = r[k];
+  return out;
 }
 
 // --- layout conversion: int64 16-bit limbs <-> 32-bit words ---------------

@@ -10,14 +10,18 @@
 // pointers and a CUDA stream, launches on that stream and returns
 // cudaGetLastError().
 //
-// Shared design (simple and right first):
+// quad_mul and base_mul_add_glv, the two kernels with the most launches x
+// time on the SEAL path, have the Hopper design of ec_group.cuh: several
+// threads per lane, window tables in shared memory.  The five others keep
+// the first, simple design:
 //  * one thread per lane, 128 threads per block, a grid over the lanes with
 //    the ragged edge masked; nothing is padded;
 //  * inputs are the port's int64 16-bit limbs ((n, 3, 16) points, (n, 16)
 //    scalars), repacked to 8 x 32-bit words on load; 4-bit window digits are
 //    read from the scalar limbs in the kernel, least significant first;
 //  * per-lane window tables [inf, P, ..., 15P] live in local memory
-//    (1.5 KiB each); lookups by secret digit read all 16 entries and mask;
+//    (1.5 KiB each); lookups by secret digit read all 16 entries and mask
+//    (pt_select16, straight-line code that chip_smoke.py checks in SASS);
 //  * constant tables (comb table, window-0 tables of G and phi(G)) come as
 //    32-bit words in device memory; every lane reads the same entries, which
 //    replaces the TPU's exact one-hot f32 MXU matmuls.
@@ -28,20 +32,20 @@
 // 2^32 + 977; cuda_ec.int_muls() counts, per lane from the ladder shape,
 // what the formulas need (squarings at 36 products, muls by 2 and 8 as
 // shifts), which is less than these kernels do.
-// Latency, not throughput, limits this first version: the auction gives a
+// Latency, not throughput, limits the simple design: the auction gives a
 // kernel a few thousand lanes, tens of blocks on 132 SMs, and each thread
 // runs a long dependent chain with its tables spilled to local memory.
 //
-// What the simple design leaves on the table: PTX carry chains
-// (mad.lo.cc/madc.hi) in place of 64-bit accumulators, a shared Montgomery
-// or Karatsuba field mul, tables in shared memory, several threads per lane
-// (limb-parallel arithmetic) to fill the card at small lane counts, and
-// signed-digit windows (8 entries per table instead of 16).
+// What it leaves on the table: PTX carry chains (mad.lo.cc/madc.hi) in
+// place of 64-bit accumulators, tables in shared memory and several
+// threads per lane (as ec_group.cuh does), and signed-digit windows (8
+// entries per table instead of 16).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "ec_device.cuh"
+#include "ec_group.cuh"
 
 namespace {
 
@@ -81,8 +85,6 @@ mul_comb_kernel(const int64_t* __restrict__ k, const uint32_t* __restrict__ tabl
 //    scalar_mul, and at 64 windows on full scalars (kp*P + kq*Q without
 //    GLV).  Replaces _dual_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:366)
 //    at both window counts.
-//  * quad_mul (S = 4): four GLV half-scalars; 6 KiB of tables.  Replaces
-//    _quad_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:404).
 // ---------------------------------------------------------------------------
 template <int S>
 struct StrausArgs {
@@ -121,63 +123,60 @@ __global__ void __launch_bounds__(kThreads) dual_mul_kernel(StrausArgs<2> a) {
   straus(a);
 }
 
-__global__ void __launch_bounds__(kThreads) quad_mul_kernel(StrausArgs<4> a) {
-  straus(a);
+// ---------------------------------------------------------------------------
+// quad_mul: sum of four k_i*P_i over GLV half-scalars, and base_mul_add_glv:
+// g^s * P^t with both scalars GLV-split, on the group ladder of
+// ec_group.cuh (several threads per lane, tables in shared memory).
+//  * quad_mul replaces _quad_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:404).
+//  * base_mul_add_glv replaces _base_mul_add_glv_kernel
+//    (privacy_auction_tpu/ops/pallas_ec.py:436).  P1/P2 are the
+//    sign-adjusted +-P / +-phi(P) with magnitudes t1/t2; s1/s2 the
+//    magnitudes of s's halves with signs in sflags (n, 2).  The generator
+//    side reads the constant window-0 tables of G and phi(G) (affine,
+//    Z = 1) and negates the fetched Y where the lane's sign flag is set:
+//    any (0:y:0) is a valid infinity for the complete formulas.
+// ---------------------------------------------------------------------------
+// Threads a lane, G = 8 or 4, chosen by the wrapper from the launch's lanes
+// (cuda_ec.launch_shape): up to 2,048 lanes the launch is a few warps an
+// SM, latency-bound, and 8 threads take an add in two rounds of muls, not
+// four; above that 4 threads do less work in all and keep the card busy
+// (measured on the H100: PERF.md, Findings).
+template <int G>
+__global__ void __launch_bounds__(pa::grp::kWarp) quad_mul_kernel(pa::grp::Args a) {
+  pa::grp::straus_group<false, G>(a);
 }
 
-// ---------------------------------------------------------------------------
-// base_mul_add_glv: g^s * P^t with both scalars GLV-split.
-// Replaces _base_mul_add_glv_kernel (privacy_auction_tpu/ops/pallas_ec.py:436).
-// P1/P2 are the sign-adjusted +-P / +-phi(P) with magnitudes t1/t2; s1/s2
-// the magnitudes of s's halves with signs in sflags (n, 2).  The generator
-// side reads the constant window-0 tables of G and phi(G) (affine, Z = 1)
-// and negates the fetched Y where the lane's sign flag is set: any (0:y:0)
-// is a valid infinity for the complete formulas.
-// Per lane: 28 table adds + windows * (4 doublings + 4 adds).
-// ---------------------------------------------------------------------------
-struct BaseArgs {
-  const int64_t* P1;
-  const int64_t* t1;
-  const int64_t* P2;
-  const int64_t* t2;
-  const int64_t* s1;
-  const int64_t* s2;
-  const int64_t* sflags;
-  const uint32_t* g0;   // (2, 16, 3, 8) words: d*G and d*phi(G)
-  int64_t* out;
-  int n;
-  int windows;
-};
-
-__device__ __forceinline__ Pt signed_entry(const uint32_t* g0, uint32_t d,
-                                           int64_t negate) {
-  Pt e = pa::pt_select16(reinterpret_cast<const Pt*>(g0), d);
-  e.y = pa::fe_select(0u - (uint32_t)(negate != 0), pa::fe_neg(e.y), e.y);
-  return e;
+template <int G>
+__global__ void __launch_bounds__(pa::grp::kWarp) base_mul_add_glv_kernel(pa::grp::Args a) {
+  pa::grp::straus_group<true, G>(a);
 }
 
-__global__ void __launch_bounds__(kThreads) base_mul_add_glv_kernel(BaseArgs a) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= a.n) return;
-  Pt T1[16], T2[16];
-  pa::pt_fill_table(T1, pa::pt_load_limbs(a.P1 + (size_t)lane * 48));
-  pa::pt_fill_table(T2, pa::pt_load_limbs(a.P2 + (size_t)lane * 48));
-  const int64_t* t1l = a.t1 + (size_t)lane * 16;
-  const int64_t* t2l = a.t2 + (size_t)lane * 16;
-  const int64_t* s1l = a.s1 + (size_t)lane * 16;
-  const int64_t* s2l = a.s2 + (size_t)lane * 16;
-  const int64_t neg1 = a.sflags[(size_t)lane * 2];
-  const int64_t neg2 = a.sflags[(size_t)lane * 2 + 1];
-  Pt acc = pa::pt_infinity();
-#pragma unroll 1
-  for (int w = a.windows - 1; w >= 0; --w) {
-    acc = pa::pt_dbl4(acc);
-    acc = pa::pt_add(acc, signed_entry(a.g0, pa::scalar_digit(s1l, w), neg1));
-    acc = pa::pt_add(acc, signed_entry(a.g0 + 16 * 24, pa::scalar_digit(s2l, w), neg2));
-    acc = pa::pt_add(acc, pa::pt_select16(T1, pa::scalar_digit(t1l, w)));
-    acc = pa::pt_add(acc, pa::pt_select16(T2, pa::scalar_digit(t2l, w)));
-  }
-  pa::pt_store_limbs(a.out + (size_t)lane * 48, acc);
+// Launch a group kernel with the shape the wrapper computed
+// (cuda_ec.launch_shape); a shape that differs from this build's is refused.
+template <bool kGlv, int G>
+int launch_group(const pa::grp::Args& a, int blocks, int threads, int smem, void* stream) {
+  using S = pa::grp::Shape<G>;
+  const int want_smem = kGlv ? S::kGlvSmem : S::kQuadSmem;
+  if (blocks != S::blocks(a.n) || threads != pa::grp::kWarp || smem != want_smem)
+    return (int)cudaErrorInvalidValue;
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  const cudaError_t err = kGlv ? cudaFuncSetAttribute(base_mul_add_glv_kernel<G>, attr, smem)
+                               : cudaFuncSetAttribute(quad_mul_kernel<G>, attr, smem);
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (kGlv)
+    base_mul_add_glv_kernel<G><<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
+  else
+    quad_mul_kernel<G><<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool kGlv>
+int launch_group(const pa::grp::Args& a, int group, int blocks, int threads, int smem,
+                 void* stream) {
+  if (a.n <= 0) return (int)cudaGetLastError();
+  if (group == 8) return launch_group<kGlv, 8>(a, blocks, threads, smem, stream);
+  if (group == 4) return launch_group<kGlv, 4>(a, blocks, threads, smem, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -260,20 +259,19 @@ int pa_dual_mul(const int64_t* P1, const int64_t* k1, const int64_t* P2,
 int pa_quad_mul(const int64_t* P1, const int64_t* k1, const int64_t* P2,
                 const int64_t* k2, const int64_t* P3, const int64_t* k3,
                 const int64_t* P4, const int64_t* k4, int64_t* out, int n,
-                int windows, void* stream) {
-  StrausArgs<4> a{{P1, P2, P3, P4}, {k1, k2, k3, k4}, out, n, windows};
-  if (n > 0) quad_mul_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+                int windows, int group, int blocks, int threads, int smem,
+                void* stream) {
+  pa::grp::Args a{{P1, P2, P3, P4}, {k1, k2, k3, k4}, nullptr, nullptr, out, n, windows};
+  return launch_group<false>(a, group, blocks, threads, smem, stream);
 }
 
 int pa_base_mul_add_glv(const int64_t* P1, const int64_t* t1, const int64_t* P2,
                         const int64_t* t2, const int64_t* s1, const int64_t* s2,
                         const int64_t* sflags, const uint32_t* g0, int64_t* out,
-                        int n, int windows, void* stream) {
-  BaseArgs a{P1, t1, P2, t2, s1, s2, sflags, g0, out, n, windows};
-  if (n > 0)
-    base_mul_add_glv_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+                        int n, int windows, int group, int blocks, int threads,
+                        int smem, void* stream) {
+  pa::grp::Args a{{nullptr, nullptr, P1, P2}, {s1, s2, t1, t2}, sflags, g0, out, n, windows};
+  return launch_group<true>(a, group, blocks, threads, smem, stream);
 }
 
 int pa_base_mul_add(const int64_t* P, const int64_t* t, const int64_t* s,

@@ -16,6 +16,12 @@ fallback: a CPU tensor, a missing `nvcc` or a failed build raises.
 | base_mul_add_glv   | base_mul_add_glv_kernel | _base_mul_add_glv_kernel (pallas_ec.py:436) |
 | base_mul_add       | base_mul_add_kernel     | _base_mul_add_kernel (pallas_ec.py:496) |
 | pt_add             | pt_add_kernel           | _pt_add_kernel (pallas_ec.py:399)       |
+
+`quad_mul` and `base_mul_add_glv` run several threads per lane with their
+window tables in shared memory (`csrc/ec_group.cuh`); `launch_shape` gives
+their grid, block and dynamic shared memory, which the launcher checks
+against its build.  The constant tables (comb tables, the window-0 tables of
+G and phi(G)) are packed to 32-bit words once per tensor and kept.
 """
 
 from __future__ import annotations
@@ -24,16 +30,18 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
+import weakref
 
 import torch
 
 from ..curves import COMB_SIZE, COMB_WINDOWS
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ec_ladders.cu", "ec_device.cuh")
+SOURCES = ("ec_ladders.cu", "ec_device.cuh", "ec_group.cuh")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cuda_ec"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,6 +52,30 @@ KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv",
 # scalars, the ladder without GLV) under "dual_mul_64", apart from the
 # 33-window launches that the GLV split gives it.
 launches = dict.fromkeys(KERNELS + ("dual_mul_64",), 0)
+# The same launches by (row, lanes): how wide each launch was.
+launch_lanes: dict[tuple[str, int], int] = {}
+
+# The group kernels' launch shape (csrc/ec_group.cuh, Shape<G>): G threads
+# a lane, one warp of 32 // G lanes a block; a 16-entry window table of
+# 96 B entries in shared memory per source of each lane (quad_mul: 4;
+# base_mul_add_glv: 2, besides the two constant tables once a block).
+# G is 8 up to GROUP8_MAX_LANES lanes, where a launch is a few warps an SM
+# and latency-bound, else 4 (measured on the H100, PERF.md).
+GROUP8_MAX_LANES = 2048
+WARP = 32
+TABLE_BYTES = 16 * 96
+
+
+def launch_shape(kernel: str, lanes: int) -> tuple[int, int, int, int]:
+    """(threads a lane G, blocks, threads a block, dynamic shared memory
+    bytes a block) of a group kernel's launch over `lanes` lanes: lane l is
+    served by the G threads from G * (l % per_block) of block
+    l // per_block, per_block = WARP // G."""
+    group = 8 if lanes <= GROUP8_MAX_LANES else 4
+    per_block = WARP // group
+    tables = {"quad_mul": 4 * per_block,
+              "base_mul_add_glv": 2 + 2 * per_block}[kernel]
+    return group, -(-lanes // per_block), WARP, tables * TABLE_BYTES
 
 
 class Build:
@@ -57,6 +89,41 @@ class Build:
         self.seconds = seconds
         self.ptxas_log = ptxas_log
 
+    def resources(self) -> dict[str, dict]:
+        """Per kernel (`kernel_key`), from ptxas' report: registers a
+        thread, the stack frame (cumulative, bytes) and the kernel's spill
+        stores and loads (bytes)."""
+        out: dict[str, dict] = {}
+        current = props = None
+        for line in self.ptxas_log.splitlines():
+            if "Compiling entry function" in line:
+                current = kernel_key(line)
+            elif "Function properties for" in line:
+                props = kernel_key(line) if "_kernel" in line else None
+            elif props and (m := re.search(
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+                out.setdefault(props, {}).update(
+                    spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+                props = None
+            elif current and (m := re.search(
+                    r"Used (\d+) registers.*?(\d+) bytes cumulative stack", line)):
+                out.setdefault(current, {}).update(
+                    registers=int(m.group(1)), stack_bytes=int(m.group(2)))
+        return out
+
+
+def _row(name: str) -> str | None:
+    """The wrapper whose kernel a mangled name holds."""
+    return next((k for k in KERNELS if f"{k}_kernel" in name), None)
+
+
+def kernel_key(name: str) -> str | None:
+    """The wrapper of a mangled kernel name, with the threads a lane of a
+    group kernel: "quad_mul<8>" for quad_mul_kernel<8>."""
+    row = _row(name)
+    m = re.search(r"_kernelILi(\d+)E", name)
+    return f"{row}<{m.group(1)}>" if row and m else row
+
 
 _build: Build | None = None
 
@@ -64,6 +131,13 @@ _build: Build | None = None
 def reset_launches():
     for name in launches:
         launches[name] = 0
+    launch_lanes.clear()
+
+
+def _count(row: str, n: int):
+    if n:
+        launches[row] += 1
+        launch_lanes[(row, n)] = launch_lanes.get((row, n), 0) + 1
 
 
 def _nvcc() -> str:
@@ -110,8 +184,8 @@ def build() -> Build:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.pa_mul_comb.argtypes = [P, P, P, I, P]
     lib.pa_dual_mul.argtypes = [P, P, P, P, P, I, I, P]
-    lib.pa_quad_mul.argtypes = [P] * 9 + [I, I, P]
-    lib.pa_base_mul_add_glv.argtypes = [P] * 9 + [I, I, P]
+    lib.pa_quad_mul.argtypes = [P] * 9 + [I] * 6 + [P]
+    lib.pa_base_mul_add_glv.argtypes = [P] * 9 + [I] * 6 + [P]
     lib.pa_scalar_mul.argtypes = [P, P, P, I, I, P]
     lib.pa_base_mul_add.argtypes = [P] * 5 + [I, P]
     lib.pa_pt_add.argtypes = [P, P, P, I, P]
@@ -121,6 +195,86 @@ def build() -> Build:
         fn.restype = I
     _build = Build(lib, lib_path, seconds, log_path.read_text())
     return _build
+
+
+# --------------------------------------------------------------------------
+# the table selects in SASS
+# --------------------------------------------------------------------------
+
+# The kernels that look up window tables by a secret digit, and the name
+# their select functions share (pt_select16, pt_select16_shared; both
+# __noinline__, so each is a function of its own in every kernel's SASS).
+SELECT_KERNELS = KERNELS[:-1]
+SELECT_NAME = "pt_select16"
+ENTRY_BYTES = 96
+_PRED = r"(@!?U?P[T0-9]+\s+)?"
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_LOAD = re.compile(_PRED + r"(U?LD[A-Z]*)((?:\.\w+)*)\s")
+_BRA = re.compile(_PRED + r"BRA\S*\s+(?:`\()?(0x[0-9a-f]+)")
+_WIDTH = {"128": 16, "64": 8, "U8": 1, "S8": 1, "U16": 2, "S16": 2}
+
+
+def _cuobjdump(b: Build, what: str) -> str:
+    tool = pathlib.Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), what, str(b.path)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def select_sass(b: Build) -> list[dict]:
+    """Each table select of each kernel as compiled: its load instructions
+    (`LD`, `LDS`, `LDG`, `LDL`, `LDC` and their vector and uniform forms),
+    how many are predicated, how many bytes of table they read, and its
+    branches.  `ok` holds when no load is predicated, the code is straight
+    (no branch, so every load issues once a call) and the loads read all 16
+    entries of 96 B; a kernel of SELECT_KERNELS without a select function
+    is reported not ok.  Functions are found through the ELF symbol table
+    (`$kernel$function`, with offset and size) and read from `cuobjdump
+    -sass`."""
+    funcs: dict[str, list] = {}
+    for line in _cuobjdump(b, "-elf").splitlines():
+        f = line.split()
+        if len(f) == 7 and f[-1].startswith("$") and SELECT_NAME in f[-1]:
+            kernel, fn = f[-1][1:].split("$", 1)
+            funcs.setdefault(kernel, []).append((fn, int(f[1], 16), int(f[2], 16)))
+    code: dict[str, list] = {}
+    kernel = None
+    for line in _cuobjdump(b, "-sass").splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :", 1)[1].strip()
+            code[kernel] = []
+        elif kernel and (m := _INSN.search(line)):
+            code[kernel].append((int(m.group(1), 16), m.group(2).strip()))
+    report = []
+    for kernel, fns in funcs.items():
+        row = _row(kernel) or kernel
+        for fn, start, size in fns:
+            body = [(a, t) for a, t in code.get(kernel, ())
+                    if start <= a < start + size]
+            loads = [t for _, t in body if _LOAD.match(t)]
+            table_bytes = 0
+            for t in loads:
+                m = _LOAD.match(t)
+                if "LDC" not in m.group(2):
+                    sizes = [_WIDTH[x] for x in m.group(3).split(".") if x in _WIDTH]
+                    table_bytes += sizes[0] if sizes else 4
+            branches = [t for a, t in body
+                        if (m := _BRA.match(t)) and int(m.group(2), 16) != a]
+            predicated = sum(t.startswith("@") for t in loads)
+            report.append({
+                "kernel": row, "variant": kernel_key(kernel) or kernel,
+                "select": fn, "instructions": len(body),
+                "loads": len(loads), "predicated_loads": predicated,
+                "table_bytes": table_bytes, "branches": len(branches),
+                "ok": (bool(body) and predicated == 0 and not branches
+                       and table_bytes >= 16 * ENTRY_BYTES)})
+    # a kernel that looks up tables but shows no select function fails
+    for kernel in code:
+        if _row(kernel) in SELECT_KERNELS and kernel not in funcs:
+            report.append({"kernel": _row(kernel), "variant": kernel_key(kernel),
+                           "select": None, "instructions": 0, "loads": 0,
+                           "predicated_loads": 0, "table_bytes": 0,
+                           "branches": 0, "ok": False})
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -159,6 +313,22 @@ def pack_words(limbs: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= (1 << 31), w - (1 << 32), w).to(torch.int32).contiguous()
 
 
+_packed: dict[int, tuple] = {}
+
+
+def packed_words(table: torch.Tensor) -> torch.Tensor:
+    """`pack_words(table)`, made once per table tensor and kept while the
+    tensor lives and is not written to (its version counter)."""
+    key = id(table)
+    hit = _packed.get(key)
+    if hit is not None and hit[0]() is table and hit[1] == table._version:
+        return hit[2]
+    words = pack_words(table)
+    ref = weakref.ref(table, lambda _, key=key: _packed.pop(key, None))
+    _packed[key] = (ref, table._version, words)
+    return words
+
+
 def _out(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.empty((n, 3, 16), dtype=torch.int64, device=like.device)
 
@@ -187,14 +357,13 @@ def mul_comb(table: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"mul_comb: bad comb table shape {tuple(table.shape)}")
     if table.device != k.device:
         raise ValueError("mul_comb: table and scalars on different devices")
-    words = pack_words(table)
+    words = packed_words(table)
     n = kf.shape[0]
     out = _out(n, kf)
     lib = build().lib
     _check("mul_comb", lib.pa_mul_comb(_ptr(kf), _ptr(words), _ptr(out), n,
                                        _stream(kf.device)))
-    if n:
-        launches["mul_comb"] += 1
+    _count("mul_comb", n)
     return out.reshape(batch + (3, 16))
 
 
@@ -212,8 +381,7 @@ def scalar_mul(P, k, windows: int = COMB_WINDOWS) -> torch.Tensor:
     lib = build().lib
     _check("scalar_mul", lib.pa_scalar_mul(_ptr(p), _ptr(s), _ptr(out), n,
                                            windows, _stream(p.device)))
-    if n:
-        launches["scalar_mul"] += 1
+    _count("scalar_mul", n)
     return out.reshape(batch + (3, 16))
 
 
@@ -228,8 +396,7 @@ def dual_mul(P1, k1, P2, k2, windows: int) -> torch.Tensor:
     _check("dual_mul", lib.pa_dual_mul(
         _ptr(p1), _ptr(s1), _ptr(p2), _ptr(s2), _ptr(out), n, windows,
         _stream(p1.device)))
-    if n:
-        launches["dual_mul_64" if windows == COMB_WINDOWS else "dual_mul"] += 1
+    _count("dual_mul_64" if windows == COMB_WINDOWS else "dual_mul", n)
     return out.reshape(batch + (3, 16))
 
 
@@ -243,9 +410,8 @@ def quad_mul(P1, k1, P2, k2, P3, k3, P4, k4, windows: int) -> torch.Tensor:
     lib = build().lib
     _check("quad_mul", lib.pa_quad_mul(
         *[_ptr(a) for a in args], _ptr(out), n, windows,
-        _stream(args[0].device)))
-    if n:
-        launches["quad_mul"] += 1
+        *launch_shape("quad_mul", n), _stream(args[0].device)))
+    _count("quad_mul", n)
     return out.reshape(batch + (3, 16))
 
 
@@ -260,15 +426,14 @@ def base_mul_add_glv(P1, t1, P2, t2, s1, s2, sflags, g0_tables,
         raise ValueError(f"base_mul_add_glv: bad g0 table shape "
                          f"{tuple(g0_tables.shape)}")
     _check_windows("base_mul_add_glv", windows)
-    words = pack_words(g0_tables.to(args[0].device))
+    words = packed_words(g0_tables.to(args[0].device))
     n = args[0].shape[0]
     out = _out(n, args[0])
     lib = build().lib
     _check("base_mul_add_glv", lib.pa_base_mul_add_glv(
         *[_ptr(a) for a in args], _ptr(words), _ptr(out), n, windows,
-        _stream(args[0].device)))
-    if n:
-        launches["base_mul_add_glv"] += 1
+        *launch_shape("base_mul_add_glv", n), _stream(args[0].device)))
+    _count("base_mul_add_glv", n)
     return out.reshape(batch + (3, 16))
 
 
@@ -280,15 +445,14 @@ def base_mul_add(s, P, t, g0_table) -> torch.Tensor:
     if tuple(g0_table.shape) != (COMB_SIZE, 3, 16):
         raise ValueError(f"base_mul_add: bad g0 table shape "
                          f"{tuple(g0_table.shape)}")
-    words = pack_words(g0_table.to(p.device))
+    words = packed_words(g0_table.to(p.device))
     n = p.shape[0]
     out = _out(n, p)
     lib = build().lib
     _check("base_mul_add", lib.pa_base_mul_add(
         _ptr(p), _ptr(tt), _ptr(ss), _ptr(words), _ptr(out), n,
         _stream(p.device)))
-    if n:
-        launches["base_mul_add"] += 1
+    _count("base_mul_add", n)
     return out.reshape(batch + (3, 16))
 
 
@@ -300,8 +464,7 @@ def pt_add(P, Q) -> torch.Tensor:
     lib = build().lib
     _check("pt_add", lib.pa_pt_add(_ptr(p), _ptr(q), _ptr(out), n,
                                    _stream(p.device)))
-    if n:
-        launches["pt_add"] += 1
+    _count("pt_add", n)
     return out.reshape(batch + (3, 16))
 
 

@@ -1,7 +1,7 @@
 """The CUDA kernels on the card against their plain PyTorch versions on the
 card, the kernel validator, and the JAX package's golden vectors (the
-64-window ladders and a CCS22 auction, read with numpy alone) run through
-the kernels.  Marked `cuda`; each test decides at run time whether a CUDA
+64-window ladders, a CCS22 auction and the SEAL proofs, read with numpy
+alone) run through the kernels.  Marked `cuda`; each test decides at run time whether a CUDA
 device is present and skips where there is none.  On a machine with a card
 (no JAX needed):
 
@@ -14,10 +14,11 @@ import pytest
 import torch
 
 from privacy_auction_tpu_torch.curves import COMB_WINDOWS, GLV_WINDOWS, SECP256K1 as C
+from privacy_auction_tpu_torch import nizk
 from privacy_auction_tpu_torch.ops import cuda_ec, ec
 from privacy_auction_tpu_torch.ops import field as F
 from privacy_auction_tpu_torch.ops.validate import validate_kernels
-from privacy_auction_tpu_torch.protocols import ccs22
+from privacy_auction_tpu_torch.protocols import ccs22, seal
 
 pytestmark = pytest.mark.cuda
 LANES = 300   # more than two blocks of 128 threads, with a ragged edge
@@ -125,3 +126,99 @@ def test_kernels_match_plain_and_host_on_card(card):
         _check_kernel_matches_plain_on_card(card, name)
     validate_kernels(C, lanes=8, seed=1, device=card)
     _check_golden_on_card(card)
+
+
+# --------------------------------------------------------------------------
+# the group kernels (quad_mul, base_mul_add_glv: 8 threads a lane and 4
+# lanes a block up to 2048 lanes, else 4 and 8) at ragged lane counts, and
+# against the JAX package
+# --------------------------------------------------------------------------
+
+GROUP_LANES = (1, 15, 17, 300, 2053)   # part of a block, ragged blocks, both
+                                       # thread counts a lane
+ALL_15 = (1 << 132) - 1           # every one of the 33 digits 15
+
+
+def _group_inputs(card, lanes, seed):
+    """Four points and four 132-bit scalars a lane, with the edge lanes:
+    an infinity input, a zero scalar, all-15 digits (lane 0 first, so each
+    lane count has some)."""
+    rng = random.Random(seed)
+
+    def scalars(bits):
+        return [rng.randrange(1 << bits) % C.host.n for _ in range(lanes)]
+
+    pts = [ec.mul_base(C, torch.as_tensor(F.ints_to_limbs(scalars(256))).to(card))
+           for _ in range(4)]
+    ks = [scalars(132) for _ in range(4)]
+    edges = [(0, "all15"), (lanes - 1, "zero"), (lanes // 2, "inf")]
+    for lane, what in edges:
+        if what == "all15":
+            for k in ks:
+                k[lane] = ALL_15
+        elif what == "zero":
+            ks[1][lane] = 0
+            ks[3][lane] = 0
+    ks = [torch.as_tensor(F.ints_to_limbs(k)).to(card) for k in ks]
+    pts[2][edges[-1][0]] = ec.infinity(card)
+    return [t for P, k in zip(pts, ks) for t in (P, k)]
+
+
+def test_group_kernels_match_plain_on_card(card):
+    """quad_mul and base_mul_add_glv equal their plain versions exactly at
+    1, 15, 17, 300 and 2053 lanes, edge lanes included; base_mul_add_glv also
+    with both sign flags set on one lane and each set alone on others."""
+    g0 = C.tensor("g0_tables", card)
+    for lanes in GROUP_LANES:
+        args = _group_inputs(card, lanes, lanes)
+        before = dict(cuda_ec.launches)
+        got = cuda_ec.quad_mul(*args, GLV_WINDOWS)
+        want = ec.quad_mul_windows_plain(C, *args, GLV_WINDOWS)
+        torch.cuda.synchronize()
+        assert cuda_ec.launches["quad_mul"] == before["quad_mul"] + 1
+        assert torch.equal(got, want), f"quad_mul at {lanes} lanes"
+        flags = torch.tensor([[1, 1], [1, 0], [0, 1], [0, 0]] * lanes,
+                             device=card)[:lanes]
+        glv = args[4:] + [args[1], args[3], flags]   # P1 t1 P2 t2 s1 s2 flags
+        got = cuda_ec.base_mul_add_glv(*glv, g0, GLV_WINDOWS)
+        want = ec.base_mul_add_glv_plain(C, *glv, GLV_WINDOWS)
+        torch.cuda.synchronize()
+        assert cuda_ec.launches["base_mul_add_glv"] == before["base_mul_add_glv"] + 1
+        assert torch.equal(got, want), f"base_mul_add_glv at {lanes} lanes"
+
+
+def _to(x, dev):
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+
+def test_group_kernels_hold_jax_golden_on_card(card):
+    """The JAX package's SEAL proofs from the group kernels: the recorded
+    Stage1 and Stage2 proofs recomputed on the card from their recorded
+    nonces (every equation through quad_mul), and the recorded round-1
+    PoKDLogs verified by verify_round_one_batch (through
+    base_mul_add_glv), with one tampered response rejected in its lane."""
+    import torch_golden_cases as G
+
+    def same(p, prefix):
+        G.assert_same(type(p)(*[t.cpu() for t in p]), prefix)
+
+    before = dict(cuda_ec.launches)
+    same(nizk.gen_powfstage1_from(C, G.g("stage1_r").to(card),
+                                  **_to(G.stage1_inputs(), card)), "stage1")
+    same(nizk.gen_powfstage2_from(C, G.g("stage2_r").to(card),
+                                  **_to(G.stage2_inputs(), card)), "stage2")
+    assert cuda_ec.launches["quad_mul"] >= before["quad_mul"] + 2
+    pok = G.proof(nizk.PoKDLog, "r1_pok")
+    ids = G.IDS.to(card)
+    pub = seal.RoundOnePub(G.g("X").to(card), G.g("R").to(card),
+                           nizk.PoKDLog(pok.eps[0].to(card), pok.rho[0].to(card)),
+                           nizk.PoKDLog(pok.eps[1].to(card), pok.rho[1].to(card)))
+    assert bool(seal.verify_round_one_batch(C, pub, ids).all())
+    bad = pub._replace(pok_r=pub.pok_r._replace(
+        rho=G.tampered(pub.pok_r.rho, (1, 0))))
+    want = torch.ones((2, G.N), dtype=torch.bool, device=card)
+    want[1, 0] = False
+    assert torch.equal(seal.verify_round_one_batch(C, bad, ids), want)
+    assert cuda_ec.launches["base_mul_add_glv"] >= before["base_mul_add_glv"] + 2
