@@ -9,17 +9,22 @@ package, in eight phases; any failure raises and the exit code is non-zero:
 1. the card's name and power limit (nvidia-smi);
 2. builds the seven EC kernels from `privacy_auction_tpu_torch/csrc/` with
    nvcc (sm_90a) into `build/cuda_ec/`, with ptxas' register and spill
-   report; then reads every table select of every kernel in the SASS
-   (cuobjdump, next to nvcc): it fails unless each select loads all 16
-   entries in straight-line code and no load is predicated;
+   report; then reads every table select of every kernel variant in the
+   SASS (cuobjdump, next to nvcc): it fails unless each of the 10 variants
+   that look up tables (the four group kernels at both of their threads a
+   lane, `cuda_ec.GROUPS`; `scalar_mul`, `base_mul_add`) has a select that
+   loads all 16 entries in straight-line code with no load predicated, and
+   prints how many selects it checked;
 3. the full kernel validator (the 64-window ladders, `mul_base`, the GLV
    dispatch and `pt_add`, edge lanes against the host oracle) with the
    launch counts set to 0 before it and read after it: every kernel must
    have run; then each of the eight kernel rows (`dual_mul` at 33 and at 64
    windows) at 4096 lanes against its plain PyTorch version on the card
    (exactly: integer limbs, tolerance 0) and sampled lanes against the host
-   oracle; the two group kernels (`quad_mul`, `base_mul_add_glv`) also at
-   160, 320, 1280, 2048 and 8192 lanes;
+   oracle; the rows of the four group kernels (`mul_comb`, `dual_mul` at 33
+   and 64 windows, `quad_mul`, `base_mul_add_glv`) also at 1, 15, 17, 300
+   and 2053 lanes and at the lane counts the auctions launch them at, each
+   at both of its threads a lane (8 and 4; `mul_comb` 8 and 2);
 4. verified SEAL auctions at 20x32 and 128x32 bidders x bits from a seed:
    each must verify and find the plaintext maximum, and each of its four
    kernels' launch counts must rise during each auction (printed, with the
@@ -34,12 +39,13 @@ package, in eight phases; any failure raises and the exit code is non-zero:
    their GLV forms);
 8. per kernel row, at a shape the 128x32 SEAL auction gives it (8192 lanes
    for the kernels that only the validator reaches), and the group kernels
-   at the 20x32 auction's shapes too (`quad_mul` at 160, 320 and 2048
-   lanes, `base_mul_add_glv` at 1280 and 8192): the kernel's time (CUDA
-   events), the plain version's time, both outputs compared exactly
-   (`max_abs_err` must be 0), the bound from the 32-bit integer multiplies
-   or the bytes it needs, and ptxas' registers, stack and spills with the
-   shared memory a block takes.
+   at the other auctions' shapes too (`mul_comb` at 20-20480 lanes,
+   `dual_mul` at 1280 and 4096, `quad_mul` at 160, 320 and 2048,
+   `base_mul_add_glv` at 1280): the kernel's time (CUDA events), the plain
+   version's time, both outputs compared exactly (`max_abs_err` must be 0),
+   the bound from the 32-bit integer multiplies or the bytes it needs, and
+   ptxas' registers, stack and spills with the threads a lane, threads a
+   block and shared memory a block of the launch.
 
 Prints a `kernels` JSON line, the nvidia-smi line, and last the line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when no
@@ -87,13 +93,27 @@ ROWS = tuple(REPLACES)
 SEAL_KERNELS = ROWS[:4]
 CCS22_KERNELS = ("mul_comb", "dual_mul", "quad_mul")
 VALIDATOR_ROWS = ROWS[4:]      # the path of the kernels only it reaches
-GROUP_KERNELS = ("quad_mul", "base_mul_add_glv")
-GROUP_LANES = (160, 320, 1280, 2048, 8192)
-# the group kernels' timed shapes beside their rows: quad_mul's Stage1 and
-# Stage2 proof passes of the 20x32 auction (8n, 16n) and Stage2 at 128x32;
-# base_mul_add_glv's round-1 check (2cn) at 20x32 and 128x32
-GROUP_TIMED = (("quad_mul", 160), ("quad_mul", 320), ("quad_mul", 2048),
-               ("base_mul_add_glv", 1280), ("base_mul_add_glv", 8192))
+# the rows of the group kernels (several threads a lane, csrc/ec_group.cuh)
+GROUP_ROWS = ("mul_comb", "dual_mul", "dual_mul_64", "quad_mul",
+              "base_mul_add_glv")
+RAGGED_LANES = (1, 15, 17, 300, 2053)   # part of a block, ragged blocks
+# the lane counts the auctions launch each group row at: mul_comb at SEAL
+# 20x32 (round one 4nc, commit 5nc) and 128x32, and at CCS22 20x32 and
+# 64x32 (n, nc, 4nc); dual_mul at 2nc of SEAL 20x32 and 128x32 and of CCS22
+# 64x32; dual_mul_64 at the validator's 8 and the bench's 8192; quad_mul's
+# proof passes (8n, 16n) at 20x32 and 128x32 and a commit pass;
+# base_mul_add_glv's round-one check (2cn) at 20x32 and 128x32
+AUCTION_LANES = {
+    "mul_comb": (20, 64, 640, 2048, 2560, 3200, 8192, 16384, 20480),
+    "dual_mul": (1280, 4096, 8192), "dual_mul_64": (8, 8192),
+    "quad_mul": (160, 320, 1280, 2048, 2560), "base_mul_add_glv": (1280, 8192),
+}
+# the group rows' timed shapes beside their rows (the 128x32 auction's)
+GROUP_TIMED = (tuple(("mul_comb", n) for n in AUCTION_LANES["mul_comb"]
+                     if n != 16384)
+               + (("dual_mul", 1280), ("dual_mul", 4096), ("quad_mul", 160),
+                  ("quad_mul", 320), ("quad_mul", 2048),
+                  ("base_mul_add_glv", 1280)))
 
 
 def log(msg):
@@ -142,12 +162,18 @@ def main() -> int:
             f"instructions, {r['loads']} loads ({r['predicated_loads']} "
             f"predicated) reading {r['table_bytes']} B of table, "
             f"{r['branches']} branches: {'ok' if r['ok'] else 'FAILED'}")
-    unchecked = set(cuda_ec.SELECT_KERNELS) - {r["kernel"] for r in selects}
+    # every variant with a table: the group kernels at each G they are
+    # built for, and the one-thread kernels but pt_add
+    variants = {f"{k}<{g}>" for k, gs in cuda_ec.GROUPS.items() for g in gs}
+    variants |= set(cuda_ec.SELECT_KERNELS) - set(cuda_ec.GROUPS)
+    unchecked = variants - {r["variant"] for r in selects}
     bad = [f"{r['variant']}:{r['select']}" for r in selects if not r["ok"]]
     if unchecked or bad:
         raise AssertionError(f"selects: {sorted(unchecked)} not found in the "
                              f"SASS, {bad} missing or not constant-time as "
                              "compiled")
+    log(f"[sass] {len(selects)} selects checked, one in each of "
+        f"{len(variants)} kernel variants: all constant-time")
 
     # ---- 3. validator (this slice's path) and 4096-lane parity ---------------
     cuda_ec.reset_launches()
@@ -176,12 +202,13 @@ def main() -> int:
     def kernel_inputs(name, lanes):
         """(kernel call, plain call, host oracle for lane i) on random data;
         the GLV kernels get 132-bit scalars, as the split gives them, the
-        64-window ladders full scalars."""
+        64-window ladders full scalars.  The kernel call of a group row
+        takes a launch shape (`shape=None`: launch_shape's)."""
         g0 = C.tensor("g0_tables", dev)
         if name == "mul_comb":
             ks, k = scalars(lanes)
             table = C.tensor("comb_table", dev)
-            return ((lambda: cuda_ec.mul_comb(table, k)),
+            return ((lambda shape=None: cuda_ec.mul_comb(table, k, shape)),
                     (lambda: ec.mul_comb_plain(C, table, k)),
                     lambda i: host.mul(ks[i], host.g))
         if name == "pt_add":
@@ -200,7 +227,8 @@ def main() -> int:
                 return ((lambda: cuda_ec.base_mul_add(s, P, t, g0b)),
                         (lambda: ec.base_mul_add_plain(C, s, P, t)),
                         lambda i: host.mul(ss[i] + a[i] * ts[i], host.g))
-            return ((lambda: cuda_ec.dual_mul(P, s, Q, t, COMB_WINDOWS)),
+            return ((lambda shape=None: cuda_ec.dual_mul(P, s, Q, t,
+                                                         COMB_WINDOWS, shape)),
                     (lambda: ec.dual_mul_windows_plain(C, P, s, Q, t,
                                                        COMB_WINDOWS)),
                     lambda i: host.mul(a[i] * ss[i] + b[i] * ts[i], host.g))
@@ -208,12 +236,14 @@ def main() -> int:
         srcs = [points(lanes) + scalars(lanes, 132) for _ in range(nsrc)]
         args = [t for a, P, s, k in srcs for t in (P, k)]
         if name == "dual_mul":
-            return ((lambda: cuda_ec.dual_mul(*args, GLV_WINDOWS)),
+            return ((lambda shape=None: cuda_ec.dual_mul(*args, GLV_WINDOWS,
+                                                         shape)),
                     (lambda: ec.dual_mul_windows_plain(C, *args, GLV_WINDOWS)),
                     lambda i: host.mul(sum(a[i] * s[i] for a, _, s, _ in srcs),
                                        host.g))
         if name == "quad_mul":
-            return ((lambda: cuda_ec.quad_mul(*args, GLV_WINDOWS)),
+            return ((lambda shape=None: cuda_ec.quad_mul(*args, GLV_WINDOWS,
+                                                         shape)),
                     (lambda: ec.quad_mul_windows_plain(C, *args, GLV_WINDOWS)),
                     lambda i: host.mul(sum(a[i] * s[i] for a, _, s, _ in srcs),
                                        host.g))
@@ -227,28 +257,37 @@ def main() -> int:
             e = ((-1) ** fl[i][0] * ss1[i] + (-1) ** fl[i][1] * ss2[i] * lam
                  + sum(a[i] * s[i] for a, _, s, _ in srcs))
             return host.mul(e % host.n, host.g)
-        return ((lambda: cuda_ec.base_mul_add_glv(*args, s1, s2, flags, g0,
-                                                  GLV_WINDOWS)),
+        return ((lambda shape=None: cuda_ec.base_mul_add_glv(
+                    *args, s1, s2, flags, g0, GLV_WINDOWS, shape)),
                 (lambda: ec.base_mul_add_glv_plain(C, *args, s1, s2, flags,
                                                    GLV_WINDOWS)),
                 want)
 
     parity = [(name, CHECK_LANES) for name in ROWS]
-    parity += [(name, lanes) for name in GROUP_KERNELS for lanes in GROUP_LANES]
+    parity += [(name, lanes) for name in GROUP_ROWS
+               for lanes in RAGGED_LANES + AUCTION_LANES[name]]
     for name, lanes in parity:
         run_k, run_p, want = kernel_inputs(name, lanes)
-        got = run_k()
+        kernel = name.removesuffix("_64")
+        if name in GROUP_ROWS:
+            outs = {g: run_k(cuda_ec.launch_shape(kernel, lanes, group=g))
+                    for g in cuda_ec.GROUPS[kernel]}
+        else:
+            outs = {1: run_k()}
         ref = run_p()
         torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            bad = int((got != ref).any(-1).any(-1).sum())
-            raise AssertionError(f"{name}: {bad} of {lanes} lanes differ "
-                                 f"from the plain version")
+        for g, got in outs.items():
+            if not torch.equal(got, ref):
+                bad = int((got != ref).any(-1).any(-1).sum())
+                raise AssertionError(f"{name} ({g} threads a lane): {bad} of "
+                                     f"{lanes} lanes differ from the plain "
+                                     "version")
         for i in rng.sample(range(lanes), min(SAMPLED, lanes)):
-            if ec.decode_host_point(C, got[i]) != want(i):
+            if ec.decode_host_point(C, ref[i]) != want(i):
                 raise AssertionError(f"{name}: lane {i} disagrees with host_curve")
-        log(f"[parity] {name}: {lanes} lanes equal the plain version, "
-            f"{SAMPLED} sampled lanes equal host_curve")
+        log(f"[parity] {name}: {lanes} lanes equal the plain version with "
+            f"{' and '.join(map(str, outs))} threads a lane, "
+            f"{min(SAMPLED, lanes)} sampled lanes equal host_curve")
 
     def by_lanes(counts):
         return {f"{k}@{n}": v for (k, n), v in sorted(counts.items())}
@@ -282,6 +321,7 @@ def main() -> int:
 
     # ---- 5. CCS22 auctions ---------------------------------------------------------
     ccs22_launches = {}
+    ccs22_lanes = {}
     for n, c in CCS22_AUCTIONS:
         bids = [rng.randrange(1 << c) for _ in range(n)]
         eval_id = rng.randrange(n)
@@ -303,6 +343,7 @@ def main() -> int:
             raise AssertionError(f"CCS22 {n}x{c}: kernels {idle} never "
                                  f"launched, {stray} launched")
         ccs22_launches[(n, c)] = counts
+        ccs22_lanes[(n, c)] = dict(cuda_ec.launch_lanes)
         log(f"[ccs22 {n}x{c}] evaluator {eval_id}, max_bid={res.max_bid}, wall "
             f"{wall:.3f} s; phases " + ", ".join(f"{k} {v:.3f} s"
                                                  for k, v in times.items()))
@@ -426,12 +467,13 @@ def main() -> int:
         bytes_s = (lanes * bytes_per_lane[name]
                    + table_bytes.get(name, 0)) / HBM_RATE
         path = ("seal 20x32" if name in SEAL_KERNELS else "validator")
-        row = name.removesuffix("_64")
-        if name in GROUP_KERNELS:
-            row += f"<{cuda_ec.launch_shape(name, lanes)[0]}>"
+        kernel = name.removesuffix("_64")
+        shape = (cuda_ec.launch_shape(kernel, lanes) if name in GROUP_ROWS
+                 else (1, None, 128, 0))
+        row = kernel + (f"<{shape[0]}>" if name in GROUP_ROWS else "")
         report.append({
             "name": f"{name}@{lanes}" if extra else name, "route": "cuda",
-            "source": GROUP_SOURCE if name in GROUP_KERNELS else SOURCE,
+            "source": GROUP_SOURCE if name in GROUP_ROWS else SOURCE,
             "replaces": REPLACES[name],
             "launches": (auction_lanes[AUCTIONS[0]].get((name, lanes), 0) if extra
                          else auction_launches[AUCTIONS[0]][name]
@@ -440,8 +482,9 @@ def main() -> int:
             "launches_seal_128x32": (
                 auction_lanes[AUCTIONS[-1]].get((name, lanes), 0) if extra
                 else auction_launches[AUCTIONS[-1]][name]),
-            **{f"launches_ccs22_{a}x{b}": ccs22_launches[(a, b)][name]
-               for a, b in CCS22_AUCTIONS if not extra},
+            **{f"launches_ccs22_{a}x{b}": (
+                ccs22_lanes[(a, b)].get((name, lanes), 0) if extra
+                else ccs22_launches[(a, b)][name]) for a, b in CCS22_AUCTIONS},
             "launches_validator": validator_launches[name],
             "lanes": lanes, "windows": windows.get(name), "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
@@ -449,10 +492,8 @@ def main() -> int:
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "library_ms": None,
             **resources.get(row, {}),
-            "threads_a_lane": (cuda_ec.launch_shape(name, lanes)[0]
-                               if name in GROUP_KERNELS else 1),
-            "smem_bytes": (cuda_ec.launch_shape(name, lanes)[3]
-                           if name in GROUP_KERNELS else 0),
+            "threads_a_lane": shape[0], "threads_a_block": shape[2],
+            "smem_bytes": shape[3],
         })
         log(f"[time] {name} at {lanes} lanes: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.1f} ms, bound {1e3 * max(ops_s, bytes_s):.4f} ms")

@@ -1,44 +1,64 @@
-// Straus ladders with several threads per lane, window tables in shared
-// memory: the Hopper design of quad_mul and base_mul_add_glv.
+// Ladders with several threads per lane, window tables in shared memory:
+// the Hopper design of mul_comb, dual_mul, quad_mul and base_mul_add_glv.
 //
-// Replaces _quad_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:404) and
+// Replaces _mul_base_kernel (privacy_auction_tpu/ops/pallas_ec.py:538),
+// _dual_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:366), at 33 and 64
+// windows, _quad_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:404) and
 // _base_mul_add_glv_kernel (privacy_auction_tpu/ops/pallas_ec.py:436).
 //
-// What bounds them on this card.  The SEAL proof passes give quad_mul 160
-// or 320 lanes a launch; with one thread per lane that is 2-3 blocks on 132
-// SMs, and each lane is one long dependent chain (56 table adds, then 33 x
-// (4 doublings + 4 adds)) with its 6 KiB of tables in local memory.  The
-// 32-bit multiplies themselves would take the card about 0.06 ms at 2048
-// lanes (PERF.md): latency, not throughput, sets the time.
+// What bounds them on this card.  The auctions give these kernels a few
+// hundred to twenty thousand lanes a launch: with one thread per lane that
+// is 2-160 blocks of 128 threads on 132 SMs, and each lane is one long
+// dependent chain (quad_mul: 56 table adds, then 33 x (4 doublings + 4
+// adds); mul_comb: 64 adds) with its tables in local or device memory.  The
+// 32-bit multiplies themselves would take the card 0.005-0.3 ms (PERF.md):
+// latency, not throughput, sets the time.
 //
 // What the design does about it:
-//  * a lane is a group of G consecutive threads (G = 8 up to 2,048 lanes a
-//    launch, else 4; cuda_ec.launch_shape).  Thread g serves lookup source
-//    g % 4 (quad_mul: the tables of P1..P4; base_mul_add_glv: G, phi(G),
-//    +-P, +-phi(P), the order of the plain version): it builds that table
-//    (the four 14-add builds run side by side) and makes that lookup each
-//    window (the four selects run side by side);
+//  * a lane is a group of G consecutive threads (G = 8 or 4, or 8 or 2 for
+//    mul_comb, set per kernel from the launch's lanes by
+//    cuda_ec.launch_shape).  In the Straus ladders thread g serves lookup
+//    source g % S (S = 2 for dual_mul: P1, P2; S = 4 for quad_mul: P1..P4,
+//    and for base_mul_add_glv: G, phi(G), +-P, +-phi(P), the order of the
+//    plain version): it builds that table (the S 14-add builds run side by
+//    side) and makes that lookup each window (the S selects run side by
+//    side);
 //  * the accumulator is held by all G threads; each point operation on it is
 //    shared out by field multiply: RCB16 Alg 7 is two rounds of six
-//    independent muls (one pass each with 8 threads, two with 4), Alg 9 two
-//    rounds of four.  Products and selected entries travel by warp shuffles
-//    of width G.  SIMT runs the threads' muls as one warp instruction
-//    stream, so a lane's chain is 16 (G = 8) or 24 (G = 4) mul passes a
-//    window, not 80 muls.  The products are the shorter-latency
-//    fe_mul_fast and fe_mul_small_fast of ec_device.cuh;
+//    independent muls (one pass each with 8 threads, two with 4, three with
+//    2), Alg 9 two rounds of four.  Products and selected entries travel by
+//    warp shuffles of width G.  SIMT runs the threads' muls as one warp
+//    instruction stream, so a Straus lane's chain is 16 (G = 8) or 24
+//    (G = 4) mul passes a window of four adds, not 80 muls.  The products
+//    are the shorter-latency fe_mul_fast and fe_mul_small_fast of
+//    ec_device.cuh;
 //  * window tables live in shared memory as 16-byte chunks, one (entry,
 //    chunk) of all the warp's tables side by side: a select reads all 16
 //    entries with conflict-free 128-bit loads at addresses that depend on
 //    the public entry index only, and masks by the secret digit with
 //    inline-PTX AND.  base_mul_add_glv keeps the constant window-0 tables
 //    of G and phi(G) once per block;
-//  * one warp a block: 4 or 8 lanes, so 160 lanes spread over 40 SMs.  A
-//    block takes 24 or 48 KiB of shared memory for quad_mul, 15 or 27 KiB
-//    for base_mul_add_glv.
+//  * the Straus ladders run one warp a block: 4 or 8 lanes, so 160 lanes
+//    spread over 40 SMs.  A block takes 12 or 24 KiB of shared memory for
+//    dual_mul, 24 or 48 KiB for quad_mul, 15 or 27 KiB for base_mul_add_glv;
+//  * mul_comb's comb table is the same for every lane, so its selects are
+//    broadcasts from one copy a block: a ring of `ring` window tables
+//    (1,536 B each; 64 holds the whole table), filled by cp.async ahead of
+//    the window that reads it, under one __syncthreads a window.  Every
+//    thread of a lane makes the lane's select, so no entry is shuffled.
+//    mul_comb runs G = 8 or 2 threads a lane: its large launches (8,192
+//    lanes and up) keep every scheduler busy, and there the G threads of a
+//    lane, which repeat an add's adds, subs and select, cost more than the
+//    shorter chain saves; 2 threads take an add in six mul passes, not 12.
+//    Its block is sized to the launch (cuda_ec.comb_shape): one block an
+//    SM where 4 to 12 warps can hold the lanes, so each of the SM's four
+//    schedulers gets the same number of warps (measured on the H100:
+//    PERF.md).
 //
 // The order of point operations on the accumulator is the plain version's
 // and every field op returns the canonical value, so the output equals
-// ec.quad_mul_windows_plain / ec.base_mul_add_glv_plain limb for limb.
+// ec.mul_comb_plain / ec.dual_mul_windows_plain / ec.quad_mul_windows_plain
+// / ec.base_mul_add_glv_plain limb for limb.
 #pragma once
 
 #include <cstdint>
@@ -48,26 +68,31 @@
 namespace pa {
 namespace grp {
 
-constexpr int kSources = 4;                      // lookups a window
-constexpr int kWarp = 32;                        // threads a block
+constexpr int kMaxSources = 4;                   // lookups a window, at most
+constexpr int kWarp = 32;                        // threads a Straus block
 constexpr int kChunks = 6;                       // 16-byte chunks of a point
 constexpr int kTableBytes = 16 * kChunks * 16;   // 16 entries of 96 B
 constexpr int kConstBytes = 2 * kTableBytes;     // G and phi(G), once a block
+constexpr int kCombWindows = 64;                 // window tables of a comb
+constexpr int kCombMaxThreads = 384;             // threads a mul_comb block
 
-// G threads a lane, one warp of kWarp / G lanes a block.  quad_mul: a table
-// per source of each lane; base_mul_add_glv: the constant tables, then a
-// table per per-lane source (2) of each lane.
+// G threads a lane, one warp of kWarp / G lanes a block.  dual_mul and
+// quad_mul: a table per source of each lane; base_mul_add_glv: the constant
+// tables, then a table per per-lane source (2) of each lane.
 template <int G>
 struct Shape {
   static constexpr int kLanes = kWarp / G;
-  static constexpr int kQuadSmem = kLanes * kSources * kTableBytes;
+  static constexpr int kDualSmem = kLanes * 2 * kTableBytes;
+  static constexpr int kQuadSmem = kLanes * 4 * kTableBytes;
   static constexpr int kGlvSmem = kConstBytes + kLanes * 2 * kTableBytes;
   static int blocks(int n) { return (n + kLanes - 1) / kLanes; }
 };
 
 struct Args {
-  const int64_t* P[kSources];   // quad: P1..P4; glv: unused, unused, P1, P2
-  const int64_t* k[kSources];   // quad: k1..k4; glv: s1, s2, t1, t2
+  const int64_t* P[kMaxSources];   // dual: P1, P2; quad: P1..P4;
+                                   // glv: unused, unused, P1, P2
+  const int64_t* k[kMaxSources];   // dual: k1, k2; quad: k1..k4;
+                                   // glv: s1, s2, t1, t2
   const int64_t* sflags;        // glv: (n, 2) sign flags of s1, s2
   const uint32_t* g0;           // glv: (2, 16, 3, 8) words of d*G, d*phi(G)
   int64_t* out;
@@ -125,7 +150,7 @@ __device__ __forceinline__ Fe fe_pick(int g, const R&... ops) {
 // fe_mul_fast and fe_mul_small_fast.
 
 // Complete addition, RCB16 Algorithm 7 (a = 0): two rounds of six muls,
-// one pass each with 8 threads, two with 4.
+// one pass each with 8 threads, two with 4, three with 2.
 template <int G>
 __device__ __forceinline__ Pt pt_add_grp(const Pt& P, const Pt& Q, int g) {
   const Fe z = fe_zero();
@@ -138,7 +163,7 @@ __device__ __forceinline__ Pt pt_add_grp(const Pt& P, const Pt& Q, int g) {
         fe_add(fe_pick(g, Q.x, Q.y, Q.z, Q.x, Q.y, Q.x), fe_pick(g, z, z, z, Q.y, Q.z, Q.z)));
     t0 = fe_shfl<G>(m, 0), t1 = fe_shfl<G>(m, 1), t2 = fe_shfl<G>(m, 2);
     u1 = fe_shfl<G>(m, 3), u2 = fe_shfl<G>(m, 4), u3 = fe_shfl<G>(m, 5);
-  } else {
+  } else if constexpr (G == 4) {
     // t0, t1, t2, u1 on threads 0-3, then u2, u3 on threads 0, 1
     const Fe m1 = fe_mul_fast(
         fe_add(fe_pick(g, P.x, P.y, P.z, P.x), fe_pick(g, z, z, z, P.y)),
@@ -147,6 +172,16 @@ __device__ __forceinline__ Pt pt_add_grp(const Pt& P, const Pt& Q, int g) {
                               fe_add(fe_pick(g, Q.y, Q.x), Q.z));
     t0 = fe_shfl<G>(m1, 0), t1 = fe_shfl<G>(m1, 1), t2 = fe_shfl<G>(m1, 2);
     u1 = fe_shfl<G>(m1, 3), u2 = fe_shfl<G>(m2, 0), u3 = fe_shfl<G>(m2, 1);
+  } else {
+    static_assert(G == 2, "8, 4 or 2 threads a lane");
+    // t0, t2, u2 on thread 0 and t1, u1, u3 on thread 1, one a pass
+    const Fe ma = fe_mul_fast(fe_pick(g, P.x, P.y), fe_pick(g, Q.x, Q.y));
+    const Fe mb = fe_mul_fast(fe_add(fe_pick(g, P.z, P.x), fe_pick(g, z, P.y)),
+                              fe_add(fe_pick(g, Q.z, Q.x), fe_pick(g, z, Q.y)));
+    const Fe mc = fe_mul_fast(fe_add(fe_pick(g, P.y, P.x), P.z),
+                              fe_add(fe_pick(g, Q.y, Q.x), Q.z));
+    t0 = fe_shfl<G>(ma, 0), t1 = fe_shfl<G>(ma, 1), t2 = fe_shfl<G>(mb, 0);
+    u1 = fe_shfl<G>(mb, 1), u2 = fe_shfl<G>(mc, 0), u3 = fe_shfl<G>(mc, 1);
   }
   const Fe t3 = fe_sub(u1, fe_add(t0, t1));   // X1Y2 + X2Y1
   const Fe t4 = fe_sub(u2, fe_add(t1, t2));   // Y1Z2 + Y2Z1
@@ -167,7 +202,7 @@ __device__ __forceinline__ Pt pt_add_grp(const Pt& P, const Pt& Q, int g) {
     R.x = fe_shfl<G>(o, 0);
     R.y = fe_shfl<G>(o, 2);
     R.z = fe_shfl<G>(o, 4);
-  } else {
+  } else if constexpr (G == 4) {
     // one coordinate a thread (0-2), two products each
     const Fe p = fe_mul_fast(fe_pick(g, t3, t1m, z3p), fe_pick(g, t1m, z3p, t4));
     const Fe q = fe_mul_fast(fe_pick(g, t4, y3b, t0_3), fe_pick(g, y3b, t0_3, t3));
@@ -175,6 +210,16 @@ __device__ __forceinline__ Pt pt_add_grp(const Pt& P, const Pt& Q, int g) {
     R.x = fe_shfl<G>(o, 0);
     R.y = fe_shfl<G>(o, 1);
     R.z = fe_shfl<G>(o, 2);
+  } else {
+    // X3 on thread 0 and Y3 on thread 1, two products each; Z3 from one
+    // product of each
+    const Fe pa = fe_mul_fast(fe_pick(g, t3, t1m), fe_pick(g, t1m, z3p));
+    const Fe pb = fe_mul_fast(fe_pick(g, t4, y3b), fe_pick(g, y3b, t0_3));
+    const Fe pc = fe_mul_fast(fe_pick(g, z3p, t0_3), fe_pick(g, t4, t3));
+    const Fe o = fe_select(0u - (uint32_t)(g == 0), fe_sub(pa, pb), fe_add(pa, pb));
+    R.x = fe_shfl<G>(o, 0);
+    R.y = fe_shfl<G>(o, 1);
+    R.z = fe_add(fe_shfl<G>(pc, 0), fe_shfl<G>(pc, 1));
   }
   return R;
 }
@@ -261,20 +306,22 @@ __device__ __noinline__ void fill_table_shared(uint32_t base, uint32_t stride, c
   }
 }
 
-// The ladder: per window, most significant first, 4 doublings, then the add
-// of lookup 0, 1, 2, 3 in that order.  Thread g of a lane serves source
-// g % 4 (with 8 threads, threads 4-7 repeat the lookups of 0-3: the same
-// addresses, read as broadcasts).
-template <bool kGlv, int G>
+// The Straus ladder over S sources: per window, most significant first, 4
+// doublings, then the add of lookup 0, ..., S-1 in that order.  Thread g of
+// a lane serves source g % S (threads S..G-1 repeat the lookups of
+// 0..S-1: the same addresses, read as broadcasts).
+template <int S, bool kGlv, int G>
 __device__ __forceinline__ void straus_group(const Args& a) {
-  using S = Shape<G>;
+  static_assert(S == 2 || S == 4, "dual_mul or quad_mul / base_mul_add_glv");
+  static_assert(!kGlv || S == 4, "base_mul_add_glv has four lookups");
+  using Sh = Shape<G>;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem);
   const int tid = threadIdx.x;
   const int g = tid % G;
-  const int src = g % kSources;
+  const int src = g % S;
   const int slot = tid / G;
-  const int want = blockIdx.x * S::kLanes + slot;
+  const int want = blockIdx.x * Sh::kLanes + slot;
   // the ragged edge repeats the last lane and stores nothing: every thread
   // of the warp takes part in the shuffles
   const int lane = want < a.n ? want : a.n - 1;
@@ -296,13 +343,13 @@ __device__ __forceinline__ void straus_group(const Args& a) {
       neg = 0u - (uint32_t)(a.sflags[(size_t)lane * 2 + src] != 0);
     } else {
       base = sbase + kConstBytes + 16u * (2 * slot + src - 2);
-      stride = 16u * 2 * S::kLanes;
+      stride = 16u * 2 * Sh::kLanes;
     }
   } else {
-    base = sbase + 16u * (kSources * slot + src);
-    stride = 16u * kSources * S::kLanes;
+    base = sbase + 16u * (S * slot + src);
+    stride = 16u * S * Sh::kLanes;
   }
-  if (g < kSources && (!kGlv || src >= 2))
+  if (g < S && (!kGlv || src >= 2))
     fill_table_shared(base, stride, pt_load_limbs(Ps + (size_t)lane * 48));
   __syncthreads();
   Pt acc = pt_infinity();
@@ -313,7 +360,66 @@ __device__ __forceinline__ void straus_group(const Args& a) {
     Pt e = pt_select16_shared(base, stride, scalar_digit(kl, w));
     if (kGlv) e.y = fe_select(neg, fe_neg(e.y), e.y);
 #pragma unroll 1
-    for (int s = 0; s < kSources; ++s) acc = pt_add_grp<G>(acc, pt_shfl<G>(e, s), g);
+    for (int s = 0; s < S; ++s) acc = pt_add_grp<G>(acc, pt_shfl<G>(e, s), g);
+  }
+  if (want < a.n && g == 0) pt_store_limbs(a.out + (size_t)lane * 48, acc);
+}
+
+// --- the comb: k*B over a constant (64, 16, 3, 8)-word table --------------
+
+struct CombArgs {
+  const int64_t* k;
+  const uint32_t* table;   // window w, entry e at word (16 w + e) * 24
+  int64_t* out;
+  int n;
+  int ring;                // window tables resident a block, 2..64
+};
+
+// 16 bytes from device to shared memory, asynchronously (Ampere's
+// cp.async; both addresses 16-byte aligned).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(dst), "l"(src)
+               : "memory");
+}
+
+// Window table w of the comb into ring slot `slot`, by all threads of the
+// block, as one cp.async group.
+__device__ __forceinline__ void comb_fetch(uint32_t sbase, const uint32_t* table,
+                                           int w, int slot) {
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(table) +
+                             (size_t)w * kTableBytes;
+  for (int c = threadIdx.x; c < kTableBytes / 16; c += blockDim.x)
+    cp_async16(sbase + slot * kTableBytes + 16u * c, src + 16 * c);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Windows 0..63 in ascending order from the point at infinity, one complete
+// add a window (the first, from infinity, included: it fixes the output's
+// projective limbs), as _mul_base_kernel and ec.mul_comb_plain.  The block
+// of blockDim.x / G lanes holds `ring` window tables: window w + ring - 1 is
+// fetched into the slot of window w - 1 once every thread has passed that
+// window's select (the barrier of window w), and has until the barrier of
+// window w + 1, one add later, to land.  The barriers depend on no digit.
+template <int G>
+__device__ __forceinline__ void comb_group(const CombArgs& a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem);
+  const int g = threadIdx.x % G;
+  const int want = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  // the ragged edge repeats the last lane and stores nothing: every thread
+  // of the block takes part in the shuffles and the barriers
+  const int lane = want < a.n ? want : a.n - 1;
+  const int64_t* kl = a.k + (size_t)lane * 16;
+  for (int w = 0; w < a.ring; ++w) comb_fetch(sbase, a.table, w, w);
+  Pt acc = pt_infinity();
+#pragma unroll 1
+  for (int w = 0; w < kCombWindows; ++w) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    if (w > 0 && w - 1 + a.ring < kCombWindows)
+      comb_fetch(sbase, a.table, w - 1 + a.ring, (w - 1) % a.ring);
+    const uint32_t base = sbase + (w % a.ring) * kTableBytes;
+    acc = pt_add_grp<G>(acc, pt_select16_shared(base, 16u, scalar_digit(kl, w)), g);
   }
   if (want < a.n && g == 0) pt_store_limbs(a.out + (size_t)lane * 48, acc);
 }

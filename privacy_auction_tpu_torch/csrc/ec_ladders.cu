@@ -1,8 +1,8 @@
 // The EC kernels of the port, for Hopper (sm_90a): the four ladders of the
 // SEAL and CCS22 auctions' path (mul_comb, dual_mul at 33 windows, quad_mul,
 // base_mul_add_glv) and the three kernels that only the kernel validator and
-// the ladder bench reach (scalar_mul and dual_mul at 64 windows, the non-GLV
-// base_mul_add, and pt_add).
+// the ladder bench reach (scalar_mul, the non-GLV base_mul_add, and pt_add),
+// besides dual_mul at 64 windows, which only they reach too.
 //
 // Built by privacy_auction_tpu_torch/ops/cuda_ec.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -10,10 +10,11 @@
 // pointers and a CUDA stream, launches on that stream and returns
 // cudaGetLastError().
 //
-// quad_mul and base_mul_add_glv, the two kernels with the most launches x
-// time on the SEAL path, have the Hopper design of ec_group.cuh: several
-// threads per lane, window tables in shared memory.  The five others keep
-// the first, simple design:
+// The four kernels of the auctions' path have the Hopper design of
+// ec_group.cuh: several threads per lane, window tables in shared memory;
+// their launchers take the launch shape the wrapper computed
+// (cuda_ec.launch_shape) and refuse one that does not fit the build.  The
+// three validator-only kernels keep the first, simple design:
 //  * one thread per lane, 128 threads per block, a grid over the lanes with
 //    the ragged edge masked; nothing is padded;
 //  * inputs are the port's int64 16-bit limbs ((n, 3, 16) points, (n, 16)
@@ -22,9 +23,9 @@
 //  * per-lane window tables [inf, P, ..., 15P] live in local memory
 //    (1.5 KiB each); lookups by secret digit read all 16 entries and mask
 //    (pt_select16, straight-line code that chip_smoke.py checks in SASS);
-//  * constant tables (comb table, window-0 tables of G and phi(G)) come as
-//    32-bit words in device memory; every lane reads the same entries, which
-//    replaces the TPU's exact one-hot f32 MXU matmuls.
+//  * base_mul_add's constant window-0 table of G comes as 32-bit words in
+//    device memory; every lane reads the same entries, which replaces the
+//    TPU's exact one-hot f32 MXU matmuls.
 //
 // What bounds the ladders: 32-bit integer multiplies (pt_add, one add per
 // lane, is bound by its bytes instead; see its note).  One field mul is an 8x8
@@ -32,14 +33,13 @@
 // 2^32 + 977; cuda_ec.int_muls() counts, per lane from the ladder shape,
 // what the formulas need (squarings at 36 products, muls by 2 and 8 as
 // shifts), which is less than these kernels do.
-// Latency, not throughput, limits the simple design: the auction gives a
-// kernel a few thousand lanes, tens of blocks on 132 SMs, and each thread
-// runs a long dependent chain with its tables spilled to local memory.
+// Latency, not throughput, limits the simple design: one thread runs a
+// lane's long dependent chain with its tables spilled to local memory.
 //
 // What it leaves on the table: PTX carry chains (mad.lo.cc/madc.hi) in
-// place of 64-bit accumulators, tables in shared memory and several
-// threads per lane (as ec_group.cuh does), and signed-digit windows (8
-// entries per table instead of 16).
+// place of 64-bit accumulators, the group design for the three
+// validator-only kernels, and signed-digit windows (8 entries per table
+// instead of 16).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -50,41 +50,16 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kCombWindows = 64;  // 4-bit windows of a 256-bit scalar
 
 using pa::Pt;
+using pa::grp::kCombWindows;  // 4-bit windows of a 256-bit scalar
 
 // ---------------------------------------------------------------------------
-// mul_comb: k*B over a (64, 16, 3, 8)-word comb table of B.
-// Replaces _mul_base_kernel (privacy_auction_tpu/ops/pallas_ec.py:538).
-// Per lane: 64 complete adds (64 * 12 field muls).
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-mul_comb_kernel(const int64_t* __restrict__ k, const uint32_t* __restrict__ table,
-                int64_t* __restrict__ out, int n) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= n) return;
-  const int64_t* kl = k + (size_t)lane * 16;
-  Pt acc = pa::pt_infinity();
-#pragma unroll 1
-  for (int w = 0; w < kCombWindows; ++w) {
-    const uint32_t d = pa::scalar_digit(kl, w);
-    const Pt* tw = reinterpret_cast<const Pt*>(table) + w * 16;
-    acc = pa::pt_add(acc, pa::pt_select16(tw, d));
-  }
-  pa::pt_store_limbs(out + (size_t)lane * 48, acc);
-}
-
-// ---------------------------------------------------------------------------
-// Straus ladder: sum of S k_i*P_i over `windows` 4-bit windows, one shared
-// doubling chain.  Per lane: S * 14 table adds + windows * (4 doublings +
-// S adds); S tables of 16 entries (1.5 KiB each) in local memory.
-//  * scalar_mul (S = 1): k*P over 64 windows, the plain ladder without GLV.
-//    Replaces _scalar_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:346).
-//  * dual_mul (S = 2): k1*P1 + k2*P2, at 33 windows for the GLV halves of
-//    scalar_mul, and at 64 windows on full scalars (kp*P + kq*Q without
-//    GLV).  Replaces _dual_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:366)
-//    at both window counts.
+// scalar_mul: k*P over `windows` 4-bit windows (64: the plain ladder without
+// GLV), the one-thread Straus ladder with S = 1 source.  Per lane: 14 table
+// adds + windows * (4 doublings + 1 add); one 16-entry table (1.5 KiB) in
+// local memory.
+// Replaces _scalar_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:346).
 // ---------------------------------------------------------------------------
 template <int S>
 struct StrausArgs {
@@ -119,63 +94,89 @@ __global__ void __launch_bounds__(kThreads) scalar_mul_kernel(StrausArgs<1> a) {
   straus(a);
 }
 
-__global__ void __launch_bounds__(kThreads) dual_mul_kernel(StrausArgs<2> a) {
-  straus(a);
+// ---------------------------------------------------------------------------
+// The group kernels of ec_group.cuh (several threads per lane, tables in
+// shared memory):
+//  * mul_comb: k*B over a (64, 16, 3, 8)-word comb table of B, 64 complete
+//    adds a lane.  Replaces _mul_base_kernel
+//    (privacy_auction_tpu/ops/pallas_ec.py:538).
+//  * dual_mul: k1*P1 + k2*P2, at 33 windows for the GLV halves of
+//    scalar_mul, and at 64 windows on full scalars (kp*P + kq*Q without
+//    GLV).  Replaces _dual_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:366)
+//    at both window counts.
+//  * quad_mul: sum of four k_i*P_i over GLV half-scalars.  Replaces
+//    _quad_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:404).
+//  * base_mul_add_glv: g^s * P^t with both scalars GLV-split.  Replaces
+//    _base_mul_add_glv_kernel (privacy_auction_tpu/ops/pallas_ec.py:436).
+//    P1/P2 are the sign-adjusted +-P / +-phi(P) with magnitudes t1/t2;
+//    s1/s2 the magnitudes of s's halves with signs in sflags (n, 2).  The
+//    generator side reads the constant window-0 tables of G and phi(G)
+//    (affine, Z = 1) and negates the fetched Y where the lane's sign flag is
+//    set: any (0:y:0) is a valid infinity for the complete formulas.
+// Threads a lane, G = 8 or 4 (mul_comb: 8 or 2), chosen by the wrapper from
+// the launch's lanes, per kernel (cuda_ec.launch_shape): a small launch is a
+// few warps an SM and latency-bound, and 8 threads take an add in two rounds
+// of muls, not four or six; a large one keeps the card busy with fewer
+// threads, which do less work in all (measured on the H100: PERF.md,
+// Findings).
+// ---------------------------------------------------------------------------
+template <int G>
+__global__ void __launch_bounds__(pa::grp::kCombMaxThreads)
+mul_comb_kernel(pa::grp::CombArgs a) {
+  pa::grp::comb_group<G>(a);
 }
 
-// ---------------------------------------------------------------------------
-// quad_mul: sum of four k_i*P_i over GLV half-scalars, and base_mul_add_glv:
-// g^s * P^t with both scalars GLV-split, on the group ladder of
-// ec_group.cuh (several threads per lane, tables in shared memory).
-//  * quad_mul replaces _quad_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:404).
-//  * base_mul_add_glv replaces _base_mul_add_glv_kernel
-//    (privacy_auction_tpu/ops/pallas_ec.py:436).  P1/P2 are the
-//    sign-adjusted +-P / +-phi(P) with magnitudes t1/t2; s1/s2 the
-//    magnitudes of s's halves with signs in sflags (n, 2).  The generator
-//    side reads the constant window-0 tables of G and phi(G) (affine,
-//    Z = 1) and negates the fetched Y where the lane's sign flag is set:
-//    any (0:y:0) is a valid infinity for the complete formulas.
-// ---------------------------------------------------------------------------
-// Threads a lane, G = 8 or 4, chosen by the wrapper from the launch's lanes
-// (cuda_ec.launch_shape): up to 2,048 lanes the launch is a few warps an
-// SM, latency-bound, and 8 threads take an add in two rounds of muls, not
-// four; above that 4 threads do less work in all and keep the card busy
-// (measured on the H100: PERF.md, Findings).
+template <int G>
+__global__ void __launch_bounds__(pa::grp::kWarp) dual_mul_kernel(pa::grp::Args a) {
+  pa::grp::straus_group<2, false, G>(a);
+}
+
 template <int G>
 __global__ void __launch_bounds__(pa::grp::kWarp) quad_mul_kernel(pa::grp::Args a) {
-  pa::grp::straus_group<false, G>(a);
+  pa::grp::straus_group<4, false, G>(a);
 }
 
 template <int G>
 __global__ void __launch_bounds__(pa::grp::kWarp) base_mul_add_glv_kernel(pa::grp::Args a) {
-  pa::grp::straus_group<true, G>(a);
+  pa::grp::straus_group<4, true, G>(a);
 }
 
-// Launch a group kernel with the shape the wrapper computed
-// (cuda_ec.launch_shape); a shape that differs from this build's is refused.
-template <bool kGlv, int G>
-int launch_group(const pa::grp::Args& a, int blocks, int threads, int smem, void* stream) {
-  using S = pa::grp::Shape<G>;
-  const int want_smem = kGlv ? S::kGlvSmem : S::kQuadSmem;
-  if (blocks != S::blocks(a.n) || threads != pa::grp::kWarp || smem != want_smem)
-    return (int)cudaErrorInvalidValue;
-  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  const cudaError_t err = kGlv ? cudaFuncSetAttribute(base_mul_add_glv_kernel<G>, attr, smem)
-                               : cudaFuncSetAttribute(quad_mul_kernel<G>, attr, smem);
+template <class A>
+int launch(void (*kernel)(A), const A& a, int blocks, int threads, int smem,
+           void* stream) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  if constexpr (kGlv)
-    base_mul_add_glv_kernel<G><<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
-  else
-    quad_mul_kernel<G><<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool kGlv>
-int launch_group(const pa::grp::Args& a, int group, int blocks, int threads, int smem,
-                 void* stream) {
+enum Ladder { kDual, kQuad, kGlv };
+
+// Launch a Straus group kernel with the shape the wrapper computed
+// (cuda_ec.launch_shape); a shape that differs from this build's is refused.
+template <Ladder L, int G>
+int launch_straus(const pa::grp::Args& a, int blocks, int threads, int smem,
+                  void* stream) {
+  using S = pa::grp::Shape<G>;
+  const int want_smem = L == kDual ? S::kDualSmem : L == kQuad ? S::kQuadSmem
+                                                               : S::kGlvSmem;
+  if (blocks != S::blocks(a.n) || threads != pa::grp::kWarp || smem != want_smem)
+    return (int)cudaErrorInvalidValue;
+  if constexpr (L == kDual)
+    return launch(dual_mul_kernel<G>, a, blocks, threads, smem, stream);
+  else if constexpr (L == kQuad)
+    return launch(quad_mul_kernel<G>, a, blocks, threads, smem, stream);
+  else
+    return launch(base_mul_add_glv_kernel<G>, a, blocks, threads, smem, stream);
+}
+
+template <Ladder L>
+int launch_straus(const pa::grp::Args& a, int group, int blocks, int threads, int smem,
+                  void* stream) {
   if (a.n <= 0) return (int)cudaGetLastError();
-  if (group == 8) return launch_group<kGlv, 8>(a, blocks, threads, smem, stream);
-  if (group == 4) return launch_group<kGlv, 4>(a, blocks, threads, smem, stream);
+  if (group == 8) return launch_straus<L, 8>(a, blocks, threads, smem, stream);
+  if (group == 4) return launch_straus<L, 4>(a, blocks, threads, smem, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -235,11 +236,21 @@ inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
 extern "C" {
 
+// The comb's shape: G = 8 or 2 threads a lane, a block of whole warps (at most
+// kCombMaxThreads), blocks that cover the lanes with at most one ragged, and
+// shared memory for a ring of 2..64 window tables; anything else is refused.
 int pa_mul_comb(const int64_t* k, const uint32_t* table, int64_t* out, int n,
-                void* stream) {
-  if (n > 0)
-    mul_comb_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(k, table, out, n);
-  return (int)cudaGetLastError();
+                int group, int blocks, int threads, int smem, void* stream) {
+  using pa::grp::kTableBytes;
+  if (n <= 0) return (int)cudaGetLastError();
+  const pa::grp::CombArgs a{k, table, out, n, smem / kTableBytes};
+  if ((group != 8 && group != 2) || threads % pa::grp::kWarp != 0 ||
+      threads <= 0 ||
+      threads > pa::grp::kCombMaxThreads || smem % kTableBytes != 0 || a.ring < 2 ||
+      a.ring > pa::grp::kCombWindows || blocks != (n + threads / group - 1) / (threads / group))
+    return (int)cudaErrorInvalidValue;
+  if (group == 8) return launch(mul_comb_kernel<8>, a, blocks, threads, smem, stream);
+  return launch(mul_comb_kernel<2>, a, blocks, threads, smem, stream);
 }
 
 int pa_scalar_mul(const int64_t* P, const int64_t* k, int64_t* out, int n,
@@ -250,10 +261,11 @@ int pa_scalar_mul(const int64_t* P, const int64_t* k, int64_t* out, int n,
 }
 
 int pa_dual_mul(const int64_t* P1, const int64_t* k1, const int64_t* P2,
-                const int64_t* k2, int64_t* out, int n, int windows, void* stream) {
-  StrausArgs<2> a{{P1, P2}, {k1, k2}, out, n, windows};
-  if (n > 0) dual_mul_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+                const int64_t* k2, int64_t* out, int n, int windows, int group,
+                int blocks, int threads, int smem, void* stream) {
+  pa::grp::Args a{{P1, P2, nullptr, nullptr}, {k1, k2, nullptr, nullptr}, nullptr,
+                  nullptr, out, n, windows};
+  return launch_straus<kDual>(a, group, blocks, threads, smem, stream);
 }
 
 int pa_quad_mul(const int64_t* P1, const int64_t* k1, const int64_t* P2,
@@ -262,7 +274,7 @@ int pa_quad_mul(const int64_t* P1, const int64_t* k1, const int64_t* P2,
                 int windows, int group, int blocks, int threads, int smem,
                 void* stream) {
   pa::grp::Args a{{P1, P2, P3, P4}, {k1, k2, k3, k4}, nullptr, nullptr, out, n, windows};
-  return launch_group<false>(a, group, blocks, threads, smem, stream);
+  return launch_straus<kQuad>(a, group, blocks, threads, smem, stream);
 }
 
 int pa_base_mul_add_glv(const int64_t* P1, const int64_t* t1, const int64_t* P2,
@@ -271,7 +283,7 @@ int pa_base_mul_add_glv(const int64_t* P1, const int64_t* t1, const int64_t* P2,
                         int n, int windows, int group, int blocks, int threads,
                         int smem, void* stream) {
   pa::grp::Args a{{nullptr, nullptr, P1, P2}, {s1, s2, t1, t2}, sflags, g0, out, n, windows};
-  return launch_group<true>(a, group, blocks, threads, smem, stream);
+  return launch_straus<kGlv>(a, group, blocks, threads, smem, stream);
 }
 
 int pa_base_mul_add(const int64_t* P, const int64_t* t, const int64_t* s,

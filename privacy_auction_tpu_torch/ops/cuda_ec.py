@@ -8,16 +8,16 @@ with `torch.empty`, launches on the current stream, raises if the launcher
 returns a CUDA error, and adds one to its launch count.  There is no
 fallback: a CPU tensor, a missing `nvcc` or a failed build raises.
 
-| wrapper            | kernel                  | TPU kernel it replaces                  |
-| mul_comb           | mul_comb_kernel         | _mul_base_kernel (pallas_ec.py:538)     |
-| scalar_mul         | scalar_mul_kernel       | _scalar_mul_kernel (pallas_ec.py:346)   |
-| dual_mul           | dual_mul_kernel         | _dual_mul_kernel (pallas_ec.py:366), at 33 and 64 windows |
-| quad_mul           | quad_mul_kernel         | _quad_mul_kernel (pallas_ec.py:404)     |
-| base_mul_add_glv   | base_mul_add_glv_kernel | _base_mul_add_glv_kernel (pallas_ec.py:436) |
-| base_mul_add       | base_mul_add_kernel     | _base_mul_add_kernel (pallas_ec.py:496) |
-| pt_add             | pt_add_kernel           | _pt_add_kernel (pallas_ec.py:399)       |
+| wrapper            | kernel                     | TPU kernel it replaces                  |
+| mul_comb           | mul_comb_kernel<G>         | _mul_base_kernel (pallas_ec.py:538)     |
+| scalar_mul         | scalar_mul_kernel          | _scalar_mul_kernel (pallas_ec.py:346)   |
+| dual_mul           | dual_mul_kernel<G>         | _dual_mul_kernel (pallas_ec.py:366), at 33 and 64 windows |
+| quad_mul           | quad_mul_kernel<G>         | _quad_mul_kernel (pallas_ec.py:404)     |
+| base_mul_add_glv   | base_mul_add_glv_kernel<G> | _base_mul_add_glv_kernel (pallas_ec.py:436) |
+| base_mul_add       | base_mul_add_kernel        | _base_mul_add_kernel (pallas_ec.py:496) |
+| pt_add             | pt_add_kernel              | _pt_add_kernel (pallas_ec.py:399)       |
 
-`quad_mul` and `base_mul_add_glv` run several threads per lane with their
+The four `<G>` kernels (GROUP_KERNELS) run G threads per lane with their
 window tables in shared memory (`csrc/ec_group.cuh`); `launch_shape` gives
 their grid, block and dynamic shared memory, which the launcher checks
 against its build.  The constant tables (comb tables, the window-0 tables of
@@ -55,27 +55,60 @@ launches = dict.fromkeys(KERNELS + ("dual_mul_64",), 0)
 # The same launches by (row, lanes): how wide each launch was.
 launch_lanes: dict[tuple[str, int], int] = {}
 
-# The group kernels' launch shape (csrc/ec_group.cuh, Shape<G>): G threads
-# a lane, one warp of 32 // G lanes a block; a 16-entry window table of
-# 96 B entries in shared memory per source of each lane (quad_mul: 4;
-# base_mul_add_glv: 2, besides the two constant tables once a block).
-# G is 8 up to GROUP8_MAX_LANES lanes, where a launch is a few warps an SM
-# and latency-bound, else 4 (measured on the H100, PERF.md).
-GROUP8_MAX_LANES = 2048
+# The group kernels' launch shape (csrc/ec_group.cuh): G threads a lane.
+# The Straus ladders (Shape<G>) run one warp of 32 // G lanes a block, with
+# a 16-entry window table of 96 B entries in shared memory per source of
+# each lane (dual_mul: 2; quad_mul: 4; base_mul_add_glv: 2, besides the two
+# constant tables once a block).  mul_comb runs blocks of COMB_WARPS warps
+# (comb_shape) over a ring of COMB_RING window tables of the comb.
+# GROUP_STEPS: the G launch_shape takes, that of the first (lanes, G) whose
+# lane count the launch does not pass (None: any).  G = 8 serves the small
+# launches, a few warps an SM and latency-bound; above, fewer threads a lane
+# do less work in all (measured on the H100 by tools/time_kernels_torch.py
+# --groups, PERF.md).  GROUPS: the G each kernel is built for, those of its
+# steps (csrc/ec_ladders.cu instantiates them).
+GROUP_STEPS = {"mul_comb": ((4096, 8), (None, 2)),
+               "dual_mul": ((2048, 8), (None, 4)),
+               "quad_mul": ((2048, 8), (None, 4)),
+               "base_mul_add_glv": ((2048, 8), (None, 4))}
+GROUPS = {k: tuple(g for _, g in steps) for k, steps in GROUP_STEPS.items()}
+GROUP_KERNELS = tuple(GROUP_STEPS)
+SMS = 132                # streaming multiprocessors of an H100 SXM
+COMB_WARPS = (4, 12)     # warps a mul_comb block: least, most
+COMB_RING = 2
 WARP = 32
 TABLE_BYTES = 16 * 96
 
 
-def launch_shape(kernel: str, lanes: int) -> tuple[int, int, int, int]:
+def launch_shape(kernel: str, lanes: int,
+                 group: int | None = None) -> tuple[int, int, int, int]:
     """(threads a lane G, blocks, threads a block, dynamic shared memory
-    bytes a block) of a group kernel's launch over `lanes` lanes: lane l is
-    served by the G threads from G * (l % per_block) of block
-    l // per_block, per_block = WARP // G."""
-    group = 8 if lanes <= GROUP8_MAX_LANES else 4
+    bytes a block) of a group kernel's launch over `lanes` lanes, with
+    `group` threads a lane if given: lane l is served by the G threads from
+    G * (l % per_block) of block l // per_block, per_block = threads // G."""
+    if group is None:
+        group = next(g for most, g in GROUP_STEPS[kernel]
+                     if most is None or lanes <= most)
+    if kernel == "mul_comb":
+        return comb_shape(lanes, group)
     per_block = WARP // group
-    tables = {"quad_mul": 4 * per_block,
+    tables = {"dual_mul": 2 * per_block, "quad_mul": 4 * per_block,
               "base_mul_add_glv": 2 + 2 * per_block}[kernel]
     return group, -(-lanes // per_block), WARP, tables * TABLE_BYTES
+
+
+def comb_shape(lanes: int, group: int, warps: int | None = None,
+               ring: int = COMB_RING) -> tuple[int, int, int, int]:
+    """mul_comb's launch shape with a ring of `ring` window tables (2 ...
+    64; 64 holds the whole comb table) and `warps` warps a block, by
+    default the fewest within COMB_WARPS that put at most one block on each
+    SM: then each of an SM's four schedulers holds as many of the launch's
+    warps as the others (measured on the H100, PERF.md)."""
+    if warps is None:
+        launch_warps = -(-lanes * group // WARP)
+        warps = min(max(-(-launch_warps // SMS), COMB_WARPS[0]), COMB_WARPS[1])
+    per_block = warps * WARP // group
+    return group, -(-lanes // per_block), warps * WARP, ring * TABLE_BYTES
 
 
 class Build:
@@ -105,10 +138,12 @@ class Build:
                 out.setdefault(props, {}).update(
                     spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
                 props = None
-            elif current and (m := re.search(
-                    r"Used (\d+) registers.*?(\d+) bytes cumulative stack", line)):
+            elif current and (m := re.search(r"Used (\d+) registers", line)):
+                # ptxas names no stack where the kernel has none
+                st = re.search(r"(\d+) bytes cumulative stack", line)
                 out.setdefault(current, {}).update(
-                    registers=int(m.group(1)), stack_bytes=int(m.group(2)))
+                    registers=int(m.group(1)),
+                    stack_bytes=int(st.group(1)) if st else 0)
         return out
 
 
@@ -182,8 +217,8 @@ def build() -> Build:
         os.replace(tmp_lib, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.pa_mul_comb.argtypes = [P, P, P, I, P]
-    lib.pa_dual_mul.argtypes = [P, P, P, P, P, I, I, P]
+    lib.pa_mul_comb.argtypes = [P, P, P] + [I] * 5 + [P]
+    lib.pa_dual_mul.argtypes = [P] * 5 + [I] * 6 + [P]
     lib.pa_quad_mul.argtypes = [P] * 9 + [I] * 6 + [P]
     lib.pa_base_mul_add_glv.argtypes = [P] * 9 + [I] * 6 + [P]
     lib.pa_scalar_mul.argtypes = [P, P, P, I, I, P]
@@ -350,7 +385,10 @@ def _check(name: str, err: int):
 # wrappers
 # --------------------------------------------------------------------------
 
-def mul_comb(table: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+# `shape` of the group kernels' wrappers: the launch shape to take in place
+# of launch_shape's, to time or check one choice of G (tools, card tests).
+
+def mul_comb(table: torch.Tensor, k: torch.Tensor, shape=None) -> torch.Tensor:
     """k*B for a (64, 16, 3, 16) comb table of B; k (..., 16)."""
     (kf,), batch = _lanes("mul_comb", [k], [(16,)])
     if tuple(table.shape) != (COMB_WINDOWS, COMB_SIZE, 3, 16):
@@ -361,8 +399,9 @@ def mul_comb(table: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     n = kf.shape[0]
     out = _out(n, kf)
     lib = build().lib
-    _check("mul_comb", lib.pa_mul_comb(_ptr(kf), _ptr(words), _ptr(out), n,
-                                       _stream(kf.device)))
+    _check("mul_comb", lib.pa_mul_comb(
+        _ptr(kf), _ptr(words), _ptr(out), n,
+        *(shape or launch_shape("mul_comb", n)), _stream(kf.device)))
     _count("mul_comb", n)
     return out.reshape(batch + (3, 16))
 
@@ -385,7 +424,7 @@ def scalar_mul(P, k, windows: int = COMB_WINDOWS) -> torch.Tensor:
     return out.reshape(batch + (3, 16))
 
 
-def dual_mul(P1, k1, P2, k2, windows: int) -> torch.Tensor:
+def dual_mul(P1, k1, P2, k2, windows: int, shape=None) -> torch.Tensor:
     """k1*P1 + k2*P2 over the low `windows` 4-bit windows."""
     (p1, s1, p2, s2), batch = _lanes(
         "dual_mul", [P1, k1, P2, k2], [(3, 16), (16,), (3, 16), (16,)])
@@ -395,12 +434,13 @@ def dual_mul(P1, k1, P2, k2, windows: int) -> torch.Tensor:
     lib = build().lib
     _check("dual_mul", lib.pa_dual_mul(
         _ptr(p1), _ptr(s1), _ptr(p2), _ptr(s2), _ptr(out), n, windows,
-        _stream(p1.device)))
+        *(shape or launch_shape("dual_mul", n)), _stream(p1.device)))
     _count("dual_mul_64" if windows == COMB_WINDOWS else "dual_mul", n)
     return out.reshape(batch + (3, 16))
 
 
-def quad_mul(P1, k1, P2, k2, P3, k3, P4, k4, windows: int) -> torch.Tensor:
+def quad_mul(P1, k1, P2, k2, P3, k3, P4, k4, windows: int,
+             shape=None) -> torch.Tensor:
     """sum k_i*P_i over the low `windows` 4-bit windows."""
     args, batch = _lanes("quad_mul", [P1, k1, P2, k2, P3, k3, P4, k4],
                          [(3, 16), (16,)] * 4)
@@ -410,13 +450,13 @@ def quad_mul(P1, k1, P2, k2, P3, k3, P4, k4, windows: int) -> torch.Tensor:
     lib = build().lib
     _check("quad_mul", lib.pa_quad_mul(
         *[_ptr(a) for a in args], _ptr(out), n, windows,
-        *launch_shape("quad_mul", n), _stream(args[0].device)))
+        *(shape or launch_shape("quad_mul", n)), _stream(args[0].device)))
     _count("quad_mul", n)
     return out.reshape(batch + (3, 16))
 
 
 def base_mul_add_glv(P1, t1, P2, t2, s1, s2, sflags, g0_tables,
-                     windows: int) -> torch.Tensor:
+                     windows: int, shape=None) -> torch.Tensor:
     """g^s * P^t from the GLV split (see ec.base_mul_add_glv_plain);
     g0_tables (2, 16, 3, 16): window-0 entries of G and phi(G)."""
     args, batch = _lanes(
@@ -432,7 +472,8 @@ def base_mul_add_glv(P1, t1, P2, t2, s1, s2, sflags, g0_tables,
     lib = build().lib
     _check("base_mul_add_glv", lib.pa_base_mul_add_glv(
         *[_ptr(a) for a in args], _ptr(words), _ptr(out), n, windows,
-        *launch_shape("base_mul_add_glv", n), _stream(args[0].device)))
+        *(shape or launch_shape("base_mul_add_glv", n)),
+        _stream(args[0].device)))
     _count("base_mul_add_glv", n)
     return out.reshape(batch + (3, 16))
 

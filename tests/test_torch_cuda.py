@@ -129,20 +129,19 @@ def test_kernels_match_plain_and_host_on_card(card):
 
 
 # --------------------------------------------------------------------------
-# the group kernels (quad_mul, base_mul_add_glv: 8 threads a lane and 4
-# lanes a block up to 2048 lanes, else 4 and 8) at ragged lane counts, and
-# against the JAX package
+# the group kernels (mul_comb, dual_mul, quad_mul, base_mul_add_glv: 8 or 4
+# threads a lane) at ragged lane counts, and against the JAX package
 # --------------------------------------------------------------------------
 
-GROUP_LANES = (1, 15, 17, 300, 2053)   # part of a block, ragged blocks, both
-                                       # thread counts a lane
+GROUP_LANES = (1, 15, 17, 300, 2053)   # part of a block, ragged blocks
 ALL_15 = (1 << 132) - 1           # every one of the 33 digits 15
+ALL_15_FULL = (1 << 256) - 1      # every one of the 64 digits 15
 
 
 def _group_inputs(card, lanes, seed):
-    """Four points and four 132-bit scalars a lane, with the edge lanes:
-    an infinity input, a zero scalar, all-15 digits (lane 0 first, so each
-    lane count has some)."""
+    """Four points and four 132-bit scalars a lane, then two 256-bit
+    scalars, with the edge lanes: an infinity input, zero scalars, all-15
+    digits (lane 0 first, so each lane count has some)."""
     rng = random.Random(seed)
 
     def scalars(bits):
@@ -150,41 +149,59 @@ def _group_inputs(card, lanes, seed):
 
     pts = [ec.mul_base(C, torch.as_tensor(F.ints_to_limbs(scalars(256))).to(card))
            for _ in range(4)]
-    ks = [scalars(132) for _ in range(4)]
+    ks = [scalars(132) for _ in range(4)] + [scalars(256) for _ in range(2)]
     edges = [(0, "all15"), (lanes - 1, "zero"), (lanes // 2, "inf")]
     for lane, what in edges:
         if what == "all15":
-            for k in ks:
-                k[lane] = ALL_15
+            for i, k in enumerate(ks):
+                k[lane] = ALL_15 if i < 4 else ALL_15_FULL
         elif what == "zero":
-            ks[1][lane] = 0
-            ks[3][lane] = 0
+            for i in (1, 3, 4):
+                ks[i][lane] = 0
     ks = [torch.as_tensor(F.ints_to_limbs(k)).to(card) for k in ks]
     pts[2][edges[-1][0]] = ec.infinity(card)
-    return [t for P, k in zip(pts, ks) for t in (P, k)]
+    return [t for P, k in zip(pts, ks) for t in (P, k)], ks[4:]
 
 
 def test_group_kernels_match_plain_on_card(card):
-    """quad_mul and base_mul_add_glv equal their plain versions exactly at
-    1, 15, 17, 300 and 2053 lanes, edge lanes included; base_mul_add_glv also
-    with both sign flags set on one lane and each set alone on others."""
+    """The four group kernels equal their plain versions exactly at 1, 15,
+    17, 300 and 2053 lanes, at both of their threads a lane, edge lanes
+    included: mul_comb on all-15 and zero scalars; dual_mul at 33 and 64
+    windows on an infinity input, zero scalars and all-15 digits;
+    base_mul_add_glv also with both sign flags set on one lane and each
+    set alone on others."""
     g0 = C.tensor("g0_tables", card)
+    table = C.tensor("comb_table", card)
     for lanes in GROUP_LANES:
-        args = _group_inputs(card, lanes, lanes)
-        before = dict(cuda_ec.launches)
-        got = cuda_ec.quad_mul(*args, GLV_WINDOWS)
-        want = ec.quad_mul_windows_plain(C, *args, GLV_WINDOWS)
-        torch.cuda.synchronize()
-        assert cuda_ec.launches["quad_mul"] == before["quad_mul"] + 1
-        assert torch.equal(got, want), f"quad_mul at {lanes} lanes"
+        args, full = _group_inputs(card, lanes, lanes)
         flags = torch.tensor([[1, 1], [1, 0], [0, 1], [0, 0]] * lanes,
                              device=card)[:lanes]
         glv = args[4:] + [args[1], args[3], flags]   # P1 t1 P2 t2 s1 s2 flags
-        got = cuda_ec.base_mul_add_glv(*glv, g0, GLV_WINDOWS)
-        want = ec.base_mul_add_glv_plain(C, *glv, GLV_WINDOWS)
-        torch.cuda.synchronize()
-        assert cuda_ec.launches["base_mul_add_glv"] == before["base_mul_add_glv"] + 1
-        assert torch.equal(got, want), f"base_mul_add_glv at {lanes} lanes"
+        dual = args[4:6] + args[2:4]                 # P3 k3 P2 k2
+        dual64 = [args[4], full[0], args[0], full[1]]
+        cases = {
+            "mul_comb": (lambda shape: cuda_ec.mul_comb(table, full[0], shape),
+                         ec.mul_comb_plain(C, table, full[0])),
+            "dual_mul": (lambda shape: cuda_ec.dual_mul(*dual, GLV_WINDOWS, shape),
+                         ec.dual_mul_windows_plain(C, *dual, GLV_WINDOWS)),
+            "dual_mul_64": (
+                lambda shape: cuda_ec.dual_mul(*dual64, COMB_WINDOWS, shape),
+                ec.dual_mul_windows_plain(C, *dual64, COMB_WINDOWS)),
+            "quad_mul": (lambda shape: cuda_ec.quad_mul(*args, GLV_WINDOWS, shape),
+                         ec.quad_mul_windows_plain(C, *args, GLV_WINDOWS)),
+            "base_mul_add_glv": (
+                lambda shape: cuda_ec.base_mul_add_glv(*glv, g0, GLV_WINDOWS, shape),
+                ec.base_mul_add_glv_plain(C, *glv, GLV_WINDOWS)),
+        }
+        for name, (run, want) in cases.items():
+            kernel = name.removesuffix("_64")
+            before = dict(cuda_ec.launches)
+            for group in cuda_ec.GROUPS[kernel]:
+                got = run(cuda_ec.launch_shape(kernel, lanes, group=group))
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), f"{name} at {lanes} lanes, G = {group}"
+            assert cuda_ec.launches[name] == before[name] + 2
+            assert torch.equal(run(None), want)         # launch_shape's own G
 
 
 def _to(x, dev):

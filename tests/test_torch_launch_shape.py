@@ -1,7 +1,8 @@
-"""The Python side of the group kernels' launch (quad_mul and
-base_mul_add_glv, several threads a lane): the grid, block and dynamic shared
-memory that `cuda_ec.launch_shape` gives for 1 ... 10,000 lanes, and the
-packing of the constant tables to 32-bit words.  Needs no card and no JAX."""
+"""The Python side of the group kernels' launch (mul_comb, dual_mul,
+quad_mul and base_mul_add_glv, several threads a lane): the grid, block and
+dynamic shared memory that `cuda_ec.launch_shape` gives for 1 ... 10,000
+lanes, and the packing of the constant tables to 32-bit words.  Needs no
+card and no JAX."""
 
 import numpy as np
 import torch
@@ -20,17 +21,40 @@ def _unpack(words: torch.Tensor) -> torch.Tensor:
 
 def test_group_launch_shape_covers_every_lane_once_and_packing_round_trips():
     table = 16 * 96
-    for kernel in ("quad_mul", "base_mul_add_glv"):
+    for kernel in cuda_ec.GROUP_KERNELS:
+        # 8 threads a lane for the small, latency-bound launches, fewer for
+        # the larger ones (the thresholds measured on the H100), each a G
+        # that csrc/ec_ladders.cu builds
+        comb = kernel == "mul_comb"
+        assert set(cuda_ec.GROUPS[kernel]) == ({8, 2} if comb else {8, 4})
         for lanes in range(1, 10_001):
             group, blocks, threads, smem = cuda_ec.launch_shape(kernel, lanes)
-            # 8 threads a lane for the small, latency-bound launches
-            assert group == (8 if lanes <= cuda_ec.GROUP8_MAX_LANES else 4)
-            assert threads == 32                 # one whole warp: the shuffles
+            if lanes <= (4096 if comb else 2048):
+                assert group == 8
+            else:
+                assert group == (2 if comb else 4)
+            for g in cuda_ec.GROUPS[kernel]:
+                assert cuda_ec.launch_shape(kernel, lanes, group=g)[0] == g
+            assert threads % 32 == 0             # whole warps: the shuffles
             per_block = threads // group
-            # quad_mul: the four tables of each lane; the GLV kernel: the two
-            # constant tables once, and the two per-lane tables of each lane
-            tables = 4 * per_block if kernel == "quad_mul" else 2 + 2 * per_block
-            assert smem == tables * table <= MAX_SMEM
+            if kernel == "mul_comb":
+                # 4 ... 12 warps, the fewest that put at most one block on
+                # each SM; a ring of 2 ... 64 window tables of the comb,
+                # shared by the block's lanes
+                warps = threads // 32
+                assert 4 <= warps <= 12
+                assert blocks <= cuda_ec.SMS or warps == 12
+                assert warps == 4 or -(-lanes // ((warps - 1) * 32 // group)) > cuda_ec.SMS
+                assert smem == cuda_ec.COMB_RING * table and 2 <= cuda_ec.COMB_RING <= 64
+            else:
+                # one warp; dual_mul and quad_mul: the two or four tables of
+                # each lane; the GLV kernel: the two constant tables once, and
+                # the two per-lane tables of each lane
+                assert threads == 32
+                tables = {"dual_mul": 2 * per_block, "quad_mul": 4 * per_block,
+                          "base_mul_add_glv": 2 + 2 * per_block}[kernel]
+                assert smem == tables * table
+            assert smem <= MAX_SMEM
             # thread t of block b serves lane b * per_block + t // group
             lane = (np.arange(blocks)[:, None] * per_block
                     + np.arange(threads)[None, :] // group)
@@ -38,6 +62,14 @@ def test_group_launch_shape_covers_every_lane_once_and_packing_round_trips():
             assert np.array_equal(np.bincount(served, minlength=lanes),
                                   np.full(lanes, group))
             assert (lane >= lanes).sum() < threads   # only the last block is ragged
+    # mul_comb's block shapes beside the default: the whole comb table fits
+    assert cuda_ec.comb_shape(100, 8, warps=8, ring=64) == (8, 4, 256, 64 * table)
+    assert cuda_ec.comb_shape(300, 2, warps=2, ring=3) == (2, 10, 64, 3 * table)
+    # the auctions' largest launches: one block an SM, or 12 warps
+    assert cuda_ec.comb_shape(16384, 2) == (2, 128, 256, 2 * table)
+    assert cuda_ec.comb_shape(20480, 2) == (2, 128, 320, 2 * table)
+    assert cuda_ec.comb_shape(100_000, 2)[1:3] == (521, 384)
+    assert 64 * table <= MAX_SMEM
 
     # the constant tables, packed once per tensor and kept while unchanged
     for name in ("g0_tables", "comb_table"):
