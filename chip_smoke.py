@@ -10,21 +10,21 @@ package, in eight phases; any failure raises and the exit code is non-zero:
 2. builds the seven EC kernels from `privacy_auction_tpu_torch/csrc/` with
    nvcc (sm_90a) into `build/cuda_ec/`, with ptxas' register and spill
    report; then reads every table select of every kernel variant in the
-   SASS (cuobjdump, next to nvcc): it fails unless each of the 10 variants
-   that look up tables (the four group kernels at both of their threads a
-   lane, `cuda_ec.GROUPS`; `scalar_mul`, `base_mul_add`) has a select that
-   loads all 16 entries in straight-line code with no load predicated, and
-   prints how many selects it checked;
+   SASS (cuobjdump, next to nvcc): it fails unless each of the 12 variants
+   that look up tables (the six group kernels at both of their threads a
+   lane, `cuda_ec.GROUPS`) has a select that loads all 16 entries in
+   straight-line code with no load predicated, and prints how many selects
+   it checked;
 3. the full kernel validator (the 64-window ladders, `mul_base`, the GLV
    dispatch and `pt_add`, edge lanes against the host oracle) with the
    launch counts set to 0 before it and read after it: every kernel must
-   have run; then each of the eight kernel rows (`dual_mul` at 33 and at 64
-   windows) at 4096 lanes against its plain PyTorch version on the card
-   (exactly: integer limbs, tolerance 0) and sampled lanes against the host
-   oracle; the rows of the four group kernels (`mul_comb`, `dual_mul` at 33
-   and 64 windows, `quad_mul`, `base_mul_add_glv`) also at 1, 15, 17, 300
-   and 2053 lanes and at the lane counts the auctions launch them at, each
-   at both of its threads a lane (8 and 4; `mul_comb` 8 and 2);
+   have run; then each kernel row against its plain PyTorch version on the
+   card (exactly: integer limbs, tolerance 0) and sampled lanes against the
+   host oracle: `pt_add` at 4096 lanes, and the seven rows of the six group
+   kernels (`dual_mul` at 33 and at 64 windows) at 1, 15, 17, 300 and 2053
+   lanes and at the lane counts the auctions, the validator and the ladder
+   bench launch them at, each lane count once, each at both of its threads
+   a lane (8 and 4; `mul_comb` 8 and 2);
 4. verified SEAL auctions at 20x32 and 128x32 bidders x bits from a seed:
    each must verify and find the plaintext maximum, and each of its four
    kernels' launch counts must rise during each auction (printed, with the
@@ -41,14 +41,15 @@ package, in eight phases; any failure raises and the exit code is non-zero:
    for the kernels that only the validator reaches), and the group kernels
    at the other auctions' shapes too (`mul_comb` at 20-20480 lanes,
    `dual_mul` at 1280 and 4096, `quad_mul` at 160, 320 and 2048,
-   `base_mul_add_glv` at 1280): the kernel's time (CUDA events), the plain
+   `base_mul_add_glv` at 1280; `scalar_mul` and `base_mul_add` at the
+   validator's 8): the kernel's time (CUDA events), the plain
    version's time, both outputs compared exactly (`max_abs_err` must be 0),
    the bound from the 32-bit integer multiplies or the bytes it needs, and
    ptxas' registers, stack and spills with the threads a lane, threads a
    block and shared memory a block of the launch.
 
-Prints a `kernels` JSON line, the nvidia-smi line, and last the line
-{"ok": true, "device": {...}}.  Exits non-zero, printing no result, when no
+Prints its total time, a `kernels` JSON line, the nvidia-smi line, and last
+the line {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when no
 CUDA device is available or the package is missing.
 """
 
@@ -92,28 +93,29 @@ REPLACES = {
 ROWS = tuple(REPLACES)
 SEAL_KERNELS = ROWS[:4]
 CCS22_KERNELS = ("mul_comb", "dual_mul", "quad_mul")
-VALIDATOR_ROWS = ROWS[4:]      # the path of the kernels only it reaches
 # the rows of the group kernels (several threads a lane, csrc/ec_group.cuh)
-GROUP_ROWS = ("mul_comb", "dual_mul", "dual_mul_64", "quad_mul",
-              "base_mul_add_glv")
+GROUP_ROWS = ROWS[:-1]
+SELECT_VARIANTS = 12    # the six group kernels, each at both of its G
 RAGGED_LANES = (1, 15, 17, 300, 2053)   # part of a block, ragged blocks
 # the lane counts the auctions launch each group row at: mul_comb at SEAL
 # 20x32 (round one 4nc, commit 5nc) and 128x32, and at CCS22 20x32 and
 # 64x32 (n, nc, 4nc); dual_mul at 2nc of SEAL 20x32 and 128x32 and of CCS22
-# 64x32; dual_mul_64 at the validator's 8 and the bench's 8192; quad_mul's
-# proof passes (8n, 16n) at 20x32 and 128x32 and a commit pass;
-# base_mul_add_glv's round-one check (2cn) at 20x32 and 128x32
+# 64x32; quad_mul's proof passes (8n, 16n) at 20x32 and 128x32 and a commit
+# pass; base_mul_add_glv's round-one check (2cn) at 20x32 and 128x32; the
+# 64-window rows at the validator's 8 and the ladder bench's 8192
 AUCTION_LANES = {
     "mul_comb": (20, 64, 640, 2048, 2560, 3200, 8192, 16384, 20480),
     "dual_mul": (1280, 4096, 8192), "dual_mul_64": (8, 8192),
     "quad_mul": (160, 320, 1280, 2048, 2560), "base_mul_add_glv": (1280, 8192),
+    "scalar_mul": (8, 8192), "base_mul_add": (8, 8192),
 }
 # the group rows' timed shapes beside their rows (the 128x32 auction's)
 GROUP_TIMED = (tuple(("mul_comb", n) for n in AUCTION_LANES["mul_comb"]
                      if n != 16384)
                + (("dual_mul", 1280), ("dual_mul", 4096), ("quad_mul", 160),
                   ("quad_mul", 320), ("quad_mul", 2048),
-                  ("base_mul_add_glv", 1280)))
+                  ("base_mul_add_glv", 1280), ("scalar_mul", 8),
+                  ("base_mul_add", 8)))
 
 
 def log(msg):
@@ -121,6 +123,7 @@ def log(msg):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -136,7 +139,6 @@ def main() -> int:
 
     dev = torch.device(DEVICE, 0)
     host = C.host
-    t_start = time.perf_counter()
 
     # ---- 1. the card --------------------------------------------------------
     smi = subprocess.run(
@@ -163,23 +165,25 @@ def main() -> int:
             f"predicated) reading {r['table_bytes']} B of table, "
             f"{r['branches']} branches: {'ok' if r['ok'] else 'FAILED'}")
     # every variant with a table: the group kernels at each G they are
-    # built for, and the one-thread kernels but pt_add
-    variants = {f"{k}<{g}>" for k, gs in cuda_ec.GROUPS.items() for g in gs}
-    variants |= set(cuda_ec.SELECT_KERNELS) - set(cuda_ec.GROUPS)
+    # built for
+    variants = {f"{k}<{g}>" for k in cuda_ec.SELECT_KERNELS
+                for g in cuda_ec.GROUPS[k]}
     unchecked = variants - {r["variant"] for r in selects}
     bad = [f"{r['variant']}:{r['select']}" for r in selects if not r["ok"]]
-    if unchecked or bad:
-        raise AssertionError(f"selects: {sorted(unchecked)} not found in the "
-                             f"SASS, {bad} missing or not constant-time as "
-                             "compiled")
+    if len(variants) < SELECT_VARIANTS or unchecked or bad:
+        raise AssertionError(f"selects: {len(variants)} kernel variants with "
+                             f"tables, {SELECT_VARIANTS} expected; "
+                             f"{sorted(unchecked)} not found in the SASS, "
+                             f"{bad} missing or not constant-time as compiled")
     log(f"[sass] {len(selects)} selects checked, one in each of "
         f"{len(variants)} kernel variants: all constant-time")
 
-    # ---- 3. validator (this slice's path) and 4096-lane parity ---------------
+    # ---- 3. validator (this slice's path) and parity ---------------------------
     cuda_ec.reset_launches()
     validate_kernels(C, lanes=8, seed=SEED, device=dev)
     torch.cuda.synchronize()
     validator_launches = dict(cuda_ec.launches)
+    validator_lanes = dict(cuda_ec.launch_lanes)
     idle = [k for k, v in validator_launches.items() if v == 0]
     if idle:
         raise AssertionError(f"validator: kernels {idle} never launched")
@@ -219,12 +223,14 @@ def main() -> int:
             (a, P), (b, Q) = points(lanes), points(lanes)
             (ss, s), (ts, t) = scalars(lanes), scalars(lanes)
             if name == "scalar_mul":
-                return ((lambda: cuda_ec.scalar_mul(P, s)),
+                return ((lambda shape=None: cuda_ec.scalar_mul(P, s,
+                                                               shape=shape)),
                         (lambda: ec.scalar_mul_windows_plain(C, P, s)),
                         lambda i: host.mul(a[i] * ss[i], host.g))
             if name == "base_mul_add":
                 g0b = C.tensor("g0_table", dev)
-                return ((lambda: cuda_ec.base_mul_add(s, P, t, g0b)),
+                return ((lambda shape=None: cuda_ec.base_mul_add(s, P, t, g0b,
+                                                                 shape)),
                         (lambda: ec.base_mul_add_plain(C, s, P, t)),
                         lambda i: host.mul(ss[i] + a[i] * ts[i], host.g))
             return ((lambda shape=None: cuda_ec.dual_mul(P, s, Q, t,
@@ -263,9 +269,9 @@ def main() -> int:
                                                    GLV_WINDOWS)),
                 want)
 
-    parity = [(name, CHECK_LANES) for name in ROWS]
+    parity = [("pt_add", CHECK_LANES)]
     parity += [(name, lanes) for name in GROUP_ROWS
-               for lanes in RAGGED_LANES + AUCTION_LANES[name]]
+               for lanes in sorted(set(RAGGED_LANES + AUCTION_LANES[name]))]
     for name, lanes in parity:
         run_k, run_p, want = kernel_inputs(name, lanes)
         kernel = name.removesuffix("_64")
@@ -475,7 +481,8 @@ def main() -> int:
             "name": f"{name}@{lanes}" if extra else name, "route": "cuda",
             "source": GROUP_SOURCE if name in GROUP_ROWS else SOURCE,
             "replaces": REPLACES[name],
-            "launches": (auction_lanes[AUCTIONS[0]].get((name, lanes), 0) if extra
+            "launches": ((auction_lanes[AUCTIONS[0]] if name in SEAL_KERNELS
+                          else validator_lanes).get((name, lanes), 0) if extra
                          else auction_launches[AUCTIONS[0]][name]
                          if name in SEAL_KERNELS else validator_launches[name]),
             "launches_path": path,
@@ -498,7 +505,7 @@ def main() -> int:
         log(f"[time] {name} at {lanes} lanes: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.1f} ms, bound {1e3 * max(ops_s, bytes_s):.4f} ms")
 
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

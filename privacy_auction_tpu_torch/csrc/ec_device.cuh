@@ -2,7 +2,8 @@
 //
 // Replaces the shared device layer of the TPU kernels
 // (privacy_auction_tpu/ops/pallas_ec.py:73-336: _propagate, _mul, _addsub,
-// _mul_small, _pt_add, _pt_dbl, _fill_table, _entry_select).
+// _mul_small, _pt_add; _pt_dbl, _fill_table and _entry_select are the group
+// forms of ec_group.cuh).
 //
 // A field element is 8 little-endian 32-bit words, always canonical in
 // [0, p), p = 2^256 - C, C = 2^32 + 977.  The TPU kernels needed
@@ -10,10 +11,10 @@
 // here every carry rides a 64-bit accumulator, which the compiler turns
 // into wide multiply-adds and add-with-carry.
 //
-// Point add and double are RCB16 Algorithms 7 and 9 for a = 0, in the same
-// order of operations as _pt_add/_pt_dbl and the plain PyTorch ec.add /
-// ec.dbl, so with canonical field values the projective results agree bit
-// for bit.
+// The point add here and the group add and double of ec_group.cuh are RCB16
+// Algorithms 7 and 9 for a = 0, in the same order of operations as
+// _pt_add/_pt_dbl and the plain PyTorch ec.add / ec.dbl, so with canonical
+// field values the projective results agree bit for bit.
 #pragma once
 
 #include <cstdint>
@@ -351,72 +352,9 @@ __device__ __noinline__ Pt pt_add(const Pt& P, const Pt& Q) {
   return pt_add_t<FieldRef>(P, Q);
 }
 
-// Complete doubling, RCB16 Algorithm 9 (a = 0): 8 muls, 4 small muls.
-__device__ __noinline__ Pt pt_dbl(const Pt& P) {
-  Fe t0 = fe_mul(P.y, P.y);
-  Fe t1 = fe_mul(P.y, P.z);
-  Fe t2 = fe_mul(P.z, P.z);
-  Fe xy = fe_mul(P.x, P.y);
-  Fe z3a = fe_mul_small(t0, 8u);
-  Fe t2b = fe_mul_small(t2, kB3);
-  Fe t2c = fe_mul_small(t2, 3u * kB3);
-  Fe y3a = fe_add(t0, t2b);
-  Fe t0m = fe_sub(t0, t2c);
-  Pt R;
-  R.x = fe_mul_small(fe_mul(t0m, xy), 2u);
-  R.y = fe_add(fe_mul(t2b, z3a), fe_mul(t0m, y3a));
-  R.z = fe_mul(t1, z3a);
-  return R;
-}
-
-__device__ __forceinline__ Pt pt_dbl4(Pt acc) {
-#pragma unroll 1
-  for (int i = 0; i < 4; ++i) acc = pt_dbl(acc);
-  return acc;
-}
-
-// [inf, P, 2P, ..., 15P], entry i+1 = add(entry i, P) as _fill_table.
-__device__ __noinline__ void pt_fill_table(Pt* T, const Pt& P) {
-  T[0] = pt_infinity();
-  T[1] = P;
-#pragma unroll 1
-  for (int i = 2; i < 16; ++i) T[i] = pt_add(T[i - 1], P);
-}
-
-// r | (w & m) for a mask m that is all ones or zero.  The AND is inline
-// PTX, so the compiler cannot see that m comes from a comparison and turn
-// the masked read of w into a load predicated on the digit.
-__device__ __forceinline__ uint32_t or_masked(uint32_t r, uint32_t w, uint32_t m) {
-  uint32_t t;
-  asm("and.b32 %0, %1, %2;" : "=r"(t) : "r"(w), "r"(m));
-  return r | t;
-}
-
 // All ones when e == d, else zero, by arithmetic on d < 16.
 __device__ __forceinline__ uint32_t digit_mask(uint32_t d, uint32_t e) {
   return 0u - (((d ^ e) - 1u) >> 31);
-}
-
-// Constant-time T[d]: every word of all 16 entries is loaded and masked in;
-// no address is formed from the digit (the stance of _entry_select).  Fully
-// unrolled, so its SASS is straight-line code whose loads can be counted
-// (chip_smoke.py checks them: all 16 entries, none predicated).
-__device__ __noinline__ Pt pt_select16(const Pt* T, uint32_t d) {
-  uint32_t r[24];
-#pragma unroll
-  for (int k = 0; k < 24; ++k) r[k] = 0u;
-#pragma unroll
-  for (uint32_t e = 0; e < 16; ++e) {
-    const uint32_t mask = digit_mask(d, e);
-    const uint32_t* tw = reinterpret_cast<const uint32_t*>(&T[e]);
-#pragma unroll
-    for (int k = 0; k < 24; ++k) r[k] = or_masked(r[k], tw[k], mask);
-  }
-  Pt out;
-  uint32_t* ow = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-  for (int k = 0; k < 24; ++k) ow[k] = r[k];
-  return out;
 }
 
 // --- layout conversion: int64 16-bit limbs <-> 32-bit words ---------------

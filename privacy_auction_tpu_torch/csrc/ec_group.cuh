@@ -1,9 +1,12 @@
 // Ladders with several threads per lane, window tables in shared memory:
-// the Hopper design of mul_comb, dual_mul, quad_mul and base_mul_add_glv.
+// the Hopper design of every table-lookup kernel of the port (mul_comb,
+// scalar_mul, dual_mul, quad_mul, base_mul_add, base_mul_add_glv).
 //
 // Replaces _mul_base_kernel (privacy_auction_tpu/ops/pallas_ec.py:538),
+// _scalar_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:346),
 // _dual_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:366), at 33 and 64
-// windows, _quad_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:404) and
+// windows, _quad_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:404),
+// _base_mul_add_kernel (privacy_auction_tpu/ops/pallas_ec.py:496) and
 // _base_mul_add_glv_kernel (privacy_auction_tpu/ops/pallas_ec.py:436).
 //
 // What bounds them on this card.  The auctions give these kernels a few
@@ -18,11 +21,16 @@
 //  * a lane is a group of G consecutive threads (G = 8 or 4, or 8 or 2 for
 //    mul_comb, set per kernel from the launch's lanes by
 //    cuda_ec.launch_shape).  In the Straus ladders thread g serves lookup
-//    source g % S (S = 2 for dual_mul: P1, P2; S = 4 for quad_mul: P1..P4,
-//    and for base_mul_add_glv: G, phi(G), +-P, +-phi(P), the order of the
-//    plain version): it builds that table (the S 14-add builds run side by
-//    side) and makes that lookup each window (the S selects run side by
-//    side);
+//    source g % S (S = 1 for scalar_mul: P; S = 2 for dual_mul: P1, P2, and
+//    for base_mul_add: G, P; S = 4 for quad_mul: P1..P4, and for
+//    base_mul_add_glv: G, phi(G), +-P, +-phi(P), the order of the plain
+//    version): it makes that lookup each window (the S selects run side by
+//    side; with S = 1 all G threads make the one select, as broadcasts);
+//  * the constant sources (G; G and phi(G)) are window-0 tables held once a
+//    block.  A lane with several tables of its own builds each on the
+//    thread that serves it (the builds run side by side, one thread's 14
+//    adds each); a lane with one (scalar_mul, base_mul_add) builds it with
+//    the group add, all G threads sharing each of the 14 adds;
 //  * the accumulator is held by all G threads; each point operation on it is
 //    shared out by field multiply: RCB16 Alg 7 is two rounds of six
 //    independent muls (one pass each with 8 threads, two with 4, three with
@@ -36,11 +44,11 @@
 //    chunk) of all the warp's tables side by side: a select reads all 16
 //    entries with conflict-free 128-bit loads at addresses that depend on
 //    the public entry index only, and masks by the secret digit with
-//    inline-PTX AND.  base_mul_add_glv keeps the constant window-0 tables
-//    of G and phi(G) once per block;
+//    inline-PTX AND;
 //  * the Straus ladders run one warp a block: 4 or 8 lanes, so 160 lanes
-//    spread over 40 SMs.  A block takes 12 or 24 KiB of shared memory for
-//    dual_mul, 24 or 48 KiB for quad_mul, 15 or 27 KiB for base_mul_add_glv;
+//    spread over 40 SMs.  A block takes 6 or 12 KiB of shared memory for
+//    scalar_mul, 12 or 24 KiB for dual_mul, 24 or 48 KiB for quad_mul, 7.5
+//    or 13.5 KiB for base_mul_add, 15 or 27 KiB for base_mul_add_glv;
 //  * mul_comb's comb table is the same for every lane, so its selects are
 //    broadcasts from one copy a block: a ring of `ring` window tables
 //    (1,536 B each; 64 holds the whole table), filled by cp.async ahead of
@@ -57,8 +65,9 @@
 //
 // The order of point operations on the accumulator is the plain version's
 // and every field op returns the canonical value, so the output equals
-// ec.mul_comb_plain / ec.dual_mul_windows_plain / ec.quad_mul_windows_plain
-// / ec.base_mul_add_glv_plain limb for limb.
+// ec.mul_comb_plain / ec.scalar_mul_windows_plain / ec.dual_mul_windows_plain
+// / ec.quad_mul_windows_plain / ec.base_mul_add_plain /
+// ec.base_mul_add_glv_plain limb for limb.
 #pragma once
 
 #include <cstdint>
@@ -72,29 +81,28 @@ constexpr int kMaxSources = 4;                   // lookups a window, at most
 constexpr int kWarp = 32;                        // threads a Straus block
 constexpr int kChunks = 6;                       // 16-byte chunks of a point
 constexpr int kTableBytes = 16 * kChunks * 16;   // 16 entries of 96 B
-constexpr int kConstBytes = 2 * kTableBytes;     // G and phi(G), once a block
 constexpr int kCombWindows = 64;                 // window tables of a comb
 constexpr int kCombMaxThreads = 384;             // threads a mul_comb block
 
-// G threads a lane, one warp of kWarp / G lanes a block.  dual_mul and
-// quad_mul: a table per source of each lane; base_mul_add_glv: the constant
-// tables, then a table per per-lane source (2) of each lane.
+// G threads a lane, one warp of kWarp / G lanes a block.  A Straus ladder
+// over S sources, the first C of them constant, holds the C constant tables
+// once, then the S - C tables of each lane.
 template <int G>
 struct Shape {
   static constexpr int kLanes = kWarp / G;
-  static constexpr int kDualSmem = kLanes * 2 * kTableBytes;
-  static constexpr int kQuadSmem = kLanes * 4 * kTableBytes;
-  static constexpr int kGlvSmem = kConstBytes + kLanes * 2 * kTableBytes;
+  static constexpr int smem(int S, int C) { return (C + (S - C) * kLanes) * kTableBytes; }
   static int blocks(int n) { return (n + kLanes - 1) / kLanes; }
 };
 
+// Source i's point (unused for a constant source) and scalar.
 struct Args {
-  const int64_t* P[kMaxSources];   // dual: P1, P2; quad: P1..P4;
-                                   // glv: unused, unused, P1, P2
-  const int64_t* k[kMaxSources];   // dual: k1, k2; quad: k1..k4;
-                                   // glv: s1, s2, t1, t2
+  const int64_t* P[kMaxSources];   // scalar: P; dual: P1, P2; quad: P1..P4;
+                                   // base: unused, P; glv: unused, unused, P1, P2
+  const int64_t* k[kMaxSources];   // scalar: k; dual: k1, k2; quad: k1..k4;
+                                   // base: s, t; glv: s1, s2, t1, t2
   const int64_t* sflags;        // glv: (n, 2) sign flags of s1, s2
-  const uint32_t* g0;           // glv: (2, 16, 3, 8) words of d*G, d*phi(G)
+  const uint32_t* g0;           // base: (16, 3, 8) words of d*G; glv:
+                                // (2, 16, 3, 8) words of d*G, d*phi(G)
   int64_t* out;
   int n;
   int windows;
@@ -251,15 +259,18 @@ __device__ __forceinline__ Pt pt_dbl_grp(const Pt& P, int g) {
 // Chunk i (16 B) of entry e of a thread's table is at shared byte address
 // base + (6e + i) * stride.
 
+// Entry e = P, the chunks i with i % step == first (all by default: thread
+// g of a lane's G stores chunks g, g + G with first = g, step = G).
 __device__ __forceinline__ void st_entry(uint32_t base, uint32_t stride, uint32_t e,
-                                         const Pt& P) {
+                                         const Pt& P, int first = 0, int step = 1) {
   const uint32_t* w = reinterpret_cast<const uint32_t*>(&P);
 #pragma unroll
   for (int i = 0; i < kChunks; ++i)
-    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};"
-                 :: "r"(base + (kChunks * e + i) * stride), "r"(w[4 * i]),
-                    "r"(w[4 * i + 1]), "r"(w[4 * i + 2]), "r"(w[4 * i + 3])
-                 : "memory");
+    if (i % step == first)
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};"
+                   :: "r"(base + (kChunks * e + i) * stride), "r"(w[4 * i]),
+                      "r"(w[4 * i + 1]), "r"(w[4 * i + 2]), "r"(w[4 * i + 3])
+                   : "memory");
 }
 
 // Constant-time entry d: all 96 chunks are loaded (addresses from the
@@ -306,14 +317,45 @@ __device__ __noinline__ void fill_table_shared(uint32_t base, uint32_t stride, c
   }
 }
 
-// The Straus ladder over S sources: per window, most significant first, 4
+// The same table of the lane by its G threads: each add shared by the group
+// (pt_add_grp, the same canonical values), thread g storing chunks g, g + G
+// of each entry.
+template <int G>
+__device__ __forceinline__ void fill_table_grp(uint32_t base, uint32_t stride, const Pt& P,
+                                               int g) {
+  st_entry(base, stride, 0, pt_infinity(), g, G);
+  st_entry(base, stride, 1, P, g, G);
+  Pt T = P;
+#pragma unroll 1
+  for (uint32_t e = 2; e < 16; ++e) {
+    T = pt_add_grp<G>(T, P, g);
+    st_entry(base, stride, e, T, g, G);
+  }
+}
+
+// fill_table_grp as a call of its own.  Measured on the H100 (PERF.md),
+// scalar_mul and base_mul_add ran 18-22% faster with the call at G = 8
+// (8-2,048 lanes) and 9-13% slower at G = 4 (8,192 lanes) than with the
+// build inlined, which ptxas compiles with other register counts.
+template <int G>
+__device__ __noinline__ void fill_table_grp_call(uint32_t base, uint32_t stride, const Pt& P,
+                                                 int g) {
+  fill_table_grp<G>(base, stride, P, g);
+}
+
+// The Straus ladder over S sources, the first C of them constant window-0
+// tables held once a block (base_mul_add: G; base_mul_add_glv: G and
+// phi(G), the fetched Y negated where the lane's sign flag is set, kSigned),
+// the others a table of each lane: per window, most significant first, 4
 // doublings, then the add of lookup 0, ..., S-1 in that order.  Thread g of
 // a lane serves source g % S (threads S..G-1 repeat the lookups of
 // 0..S-1: the same addresses, read as broadcasts).
-template <int S, bool kGlv, int G>
+template <int S, int C, bool kSigned, int G>
 __device__ __forceinline__ void straus_group(const Args& a) {
-  static_assert(S == 2 || S == 4, "dual_mul or quad_mul / base_mul_add_glv");
-  static_assert(!kGlv || S == 4, "base_mul_add_glv has four lookups");
+  static_assert(S == 1 || S == 2 || S == 4, "scalar_mul, dual_mul, quad_mul");
+  static_assert(C < S && (!kSigned || C > 0), "a lane has a table of its own");
+  constexpr int L = S - C;   // tables of each lane
+  constexpr bool kGroupFill = L == 1;
   using Sh = Shape<G>;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem);
@@ -328,28 +370,38 @@ __device__ __forceinline__ void straus_group(const Args& a) {
   const int64_t* Ps = src == 0 ? a.P[0] : src == 1 ? a.P[1] : src == 2 ? a.P[2] : a.P[3];
   const int64_t* kl =
       (src == 0 ? a.k[0] : src == 1 ? a.k[1] : src == 2 ? a.k[2] : a.k[3]) + (size_t)lane * 16;
+  // constant tables: chunk i of entry e of table s at ((6e + i) * C + s) * 16;
+  // the lane's table j after them, at ((6e + i) * L * kLanes + L * slot + j) * 16
+  const uint32_t lbase = sbase + C * kTableBytes + 16u * L * slot;
+  const uint32_t lstride = 16u * L * Sh::kLanes;
   uint32_t base, stride;
   uint32_t neg = 0u;
-  if (kGlv) {
-    // constant tables, chunk i of entry e of table s at ((6e + i) * 2 + s) * 16
+  if constexpr (C > 0) {
     uint32_t* cw = reinterpret_cast<uint32_t*>(smem);
-    for (int idx = tid; idx < 2 * 16 * 24; idx += kWarp) {
+    for (int idx = tid; idx < C * 16 * 24; idx += kWarp) {
       const int s = idx / (16 * 24), e = idx / 24 % 16, k = idx % 24;
-      cw[((kChunks * e + k / 4) * 2 + s) * 4 + k % 4] = a.g0[idx];
+      cw[((kChunks * e + k / 4) * C + s) * 4 + k % 4] = a.g0[idx];
     }
-    if (src < 2) {
-      base = sbase + 16u * src;
-      stride = 32u;
-      neg = 0u - (uint32_t)(a.sflags[(size_t)lane * 2 + src] != 0);
-    } else {
-      base = sbase + kConstBytes + 16u * (2 * slot + src - 2);
-      stride = 16u * 2 * Sh::kLanes;
-    }
-  } else {
+  }
+  // C = 0 spelled out: so written, ptxas compiles dual_mul and quad_mul
+  // to the registers and times they had before the constant sources
+  // (measured on the H100, PERF.md)
+  if constexpr (C == 0) {
     base = sbase + 16u * (S * slot + src);
     stride = 16u * S * Sh::kLanes;
+  } else if (src < C) {
+    base = sbase + 16u * src;
+    stride = 16u * C;
+    if (kSigned) neg = 0u - (uint32_t)(a.sflags[(size_t)lane * C + src] != 0);
+  } else {
+    base = lbase + 16u * (src - C);
+    stride = lstride;
   }
-  if (g < S && (!kGlv || src >= 2))
+  if constexpr (kGroupFill && G == 8)
+    fill_table_grp_call<G>(lbase, lstride, pt_load_limbs(a.P[C] + (size_t)lane * 48), g);
+  else if constexpr (kGroupFill)
+    fill_table_grp<G>(lbase, lstride, pt_load_limbs(a.P[C] + (size_t)lane * 48), g);
+  else if (g < S && (C == 0 || src >= C))
     fill_table_shared(base, stride, pt_load_limbs(Ps + (size_t)lane * 48));
   __syncthreads();
   Pt acc = pt_infinity();
@@ -358,9 +410,13 @@ __device__ __forceinline__ void straus_group(const Args& a) {
 #pragma unroll 1
     for (int i = 0; i < 4; ++i) acc = pt_dbl_grp<G>(acc, g);
     Pt e = pt_select16_shared(base, stride, scalar_digit(kl, w));
-    if (kGlv) e.y = fe_select(neg, fe_neg(e.y), e.y);
+    if (kSigned) e.y = fe_select(neg, fe_neg(e.y), e.y);
+    if constexpr (S == 1) {
+      acc = pt_add_grp<G>(acc, e, g);   // every thread made the one lookup
+    } else {
 #pragma unroll 1
-    for (int s = 0; s < S; ++s) acc = pt_add_grp<G>(acc, pt_shfl<G>(e, s), g);
+      for (int s = 0; s < S; ++s) acc = pt_add_grp<G>(acc, pt_shfl<G>(e, s), g);
+    }
   }
   if (want < a.n && g == 0) pt_store_limbs(a.out + (size_t)lane * 48, acc);
 }

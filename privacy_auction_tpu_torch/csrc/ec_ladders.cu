@@ -1,8 +1,8 @@
 // The EC kernels of the port, for Hopper (sm_90a): the four ladders of the
 // SEAL and CCS22 auctions' path (mul_comb, dual_mul at 33 windows, quad_mul,
-// base_mul_add_glv) and the three kernels that only the kernel validator and
-// the ladder bench reach (scalar_mul, the non-GLV base_mul_add, and pt_add),
-// besides dual_mul at 64 windows, which only they reach too.
+// base_mul_add_glv) and the kernels that only the kernel validator and the
+// ladder bench reach (scalar_mul, the non-GLV base_mul_add, dual_mul at 64
+// windows, and pt_add).
 //
 // Built by privacy_auction_tpu_torch/ops/cuda_ec.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -10,36 +10,28 @@
 // pointers and a CUDA stream, launches on that stream and returns
 // cudaGetLastError().
 //
-// The four kernels of the auctions' path have the Hopper design of
+// Every kernel that looks up window tables has the Hopper design of
 // ec_group.cuh: several threads per lane, window tables in shared memory;
 // their launchers take the launch shape the wrapper computed
-// (cuda_ec.launch_shape) and refuse one that does not fit the build.  The
-// three validator-only kernels keep the first, simple design:
-//  * one thread per lane, 128 threads per block, a grid over the lanes with
-//    the ragged edge masked; nothing is padded;
-//  * inputs are the port's int64 16-bit limbs ((n, 3, 16) points, (n, 16)
-//    scalars), repacked to 8 x 32-bit words on load; 4-bit window digits are
-//    read from the scalar limbs in the kernel, least significant first;
-//  * per-lane window tables [inf, P, ..., 15P] live in local memory
-//    (1.5 KiB each); lookups by secret digit read all 16 entries and mask
-//    (pt_select16, straight-line code that chip_smoke.py checks in SASS);
-//  * base_mul_add's constant window-0 table of G comes as 32-bit words in
-//    device memory; every lane reads the same entries, which replaces the
-//    TPU's exact one-hot f32 MXU matmuls.
+// (cuda_ec.launch_shape) and refuse one that does not fit the build.
+// Inputs are the port's int64 16-bit limbs ((n, 3, 16) points, (n, 16)
+// scalars), repacked to 8 x 32-bit words on load; 4-bit window digits are
+// read from the scalar limbs in the kernel, least significant first.
+// pt_add, one add a lane, keeps the first, simple design: one thread per
+// lane, 128 threads per block, a grid over the lanes with the ragged edge
+// masked.
 //
-// What bounds the ladders: 32-bit integer multiplies (pt_add, one add per
-// lane, is bound by its bytes instead; see its note).  One field mul is an 8x8
-// schoolbook of 64 wide (32x32->64) products plus 9 for the fold by
-// 2^32 + 977; cuda_ec.int_muls() counts, per lane from the ladder shape,
-// what the formulas need (squarings at 36 products, muls by 2 and 8 as
-// shifts), which is less than these kernels do.
-// Latency, not throughput, limits the simple design: one thread runs a
-// lane's long dependent chain with its tables spilled to local memory.
+// What bounds the ladders: 32-bit integer multiplies (pt_add is bound by
+// its bytes instead; see its note).  One field mul is an 8x8 schoolbook of
+// 64 wide (32x32->64) products plus 9 for the fold by 2^32 + 977;
+// cuda_ec.int_muls() counts, per lane from the ladder shape, what the
+// formulas need (squarings at 36 products, muls by 2 and 8 as shifts),
+// which is less than these kernels do.  Latency, not throughput, limits
+// them at the launches the auctions make: one lane's chain of point ops.
 //
 // What it leaves on the table: PTX carry chains (mad.lo.cc/madc.hi) in
-// place of 64-bit accumulators, the group design for the three
-// validator-only kernels, and signed-digit windows (8 entries per table
-// instead of 16).
+// place of 64-bit accumulators, and signed-digit windows (8 entries per
+// table instead of 16).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -51,48 +43,8 @@ namespace {
 
 constexpr int kThreads = 128;
 
-using pa::Pt;
-using pa::grp::kCombWindows;  // 4-bit windows of a 256-bit scalar
-
-// ---------------------------------------------------------------------------
-// scalar_mul: k*P over `windows` 4-bit windows (64: the plain ladder without
-// GLV), the one-thread Straus ladder with S = 1 source.  Per lane: 14 table
-// adds + windows * (4 doublings + 1 add); one 16-entry table (1.5 KiB) in
-// local memory.
-// Replaces _scalar_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:346).
-// ---------------------------------------------------------------------------
-template <int S>
-struct StrausArgs {
-  const int64_t* P[S];
-  const int64_t* k[S];
-  int64_t* out;
-  int n;
-  int windows;
-};
-
-template <int S>
-__device__ __forceinline__ void straus(const StrausArgs<S>& a) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= a.n) return;
-  Pt T[S][16];
-#pragma unroll 1
-  for (int s = 0; s < S; ++s)
-    pa::pt_fill_table(T[s], pa::pt_load_limbs(a.P[s] + (size_t)lane * 48));
-  Pt acc = pa::pt_infinity();
-#pragma unroll 1
-  for (int w = a.windows - 1; w >= 0; --w) {
-    acc = pa::pt_dbl4(acc);
-#pragma unroll 1
-    for (int s = 0; s < S; ++s)
-      acc = pa::pt_add(acc, pa::pt_select16(
-                                T[s], pa::scalar_digit(a.k[s] + (size_t)lane * 16, w)));
-  }
-  pa::pt_store_limbs(a.out + (size_t)lane * 48, acc);
-}
-
-__global__ void __launch_bounds__(kThreads) scalar_mul_kernel(StrausArgs<1> a) {
-  straus(a);
-}
+using pa::grp::Args;
+using pa::grp::kWarp;
 
 // ---------------------------------------------------------------------------
 // The group kernels of ec_group.cuh (several threads per lane, tables in
@@ -100,12 +52,21 @@ __global__ void __launch_bounds__(kThreads) scalar_mul_kernel(StrausArgs<1> a) {
 //  * mul_comb: k*B over a (64, 16, 3, 8)-word comb table of B, 64 complete
 //    adds a lane.  Replaces _mul_base_kernel
 //    (privacy_auction_tpu/ops/pallas_ec.py:538).
+//  * scalar_mul: k*P over `windows` 4-bit windows (64: the ladder without
+//    GLV), the Straus ladder with one source.  Replaces _scalar_mul_kernel
+//    (privacy_auction_tpu/ops/pallas_ec.py:346).
 //  * dual_mul: k1*P1 + k2*P2, at 33 windows for the GLV halves of
 //    scalar_mul, and at 64 windows on full scalars (kp*P + kq*Q without
 //    GLV).  Replaces _dual_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:366)
 //    at both window counts.
 //  * quad_mul: sum of four k_i*P_i over GLV half-scalars.  Replaces
 //    _quad_mul_kernel (privacy_auction_tpu/ops/pallas_ec.py:404).
+//  * base_mul_add: g^s * P^t without GLV over the 64 windows of the full
+//    scalars: per window, in the TPU kernel's order, 4 doublings, the add of
+//    s_w*G from the constant window-0 table of G (affine, Z = 1; every lane
+//    the same entries, which replaces the TPU's exact one-hot f32 MXU
+//    matmuls), then the add of t_w*P.  Replaces _base_mul_add_kernel
+//    (privacy_auction_tpu/ops/pallas_ec.py:496).
 //  * base_mul_add_glv: g^s * P^t with both scalars GLV-split.  Replaces
 //    _base_mul_add_glv_kernel (privacy_auction_tpu/ops/pallas_ec.py:436).
 //    P1/P2 are the sign-adjusted +-P / +-phi(P) with magnitudes t1/t2;
@@ -127,18 +88,28 @@ mul_comb_kernel(pa::grp::CombArgs a) {
 }
 
 template <int G>
-__global__ void __launch_bounds__(pa::grp::kWarp) dual_mul_kernel(pa::grp::Args a) {
-  pa::grp::straus_group<2, false, G>(a);
+__global__ void __launch_bounds__(kWarp) scalar_mul_kernel(Args a) {
+  pa::grp::straus_group<1, 0, false, G>(a);
 }
 
 template <int G>
-__global__ void __launch_bounds__(pa::grp::kWarp) quad_mul_kernel(pa::grp::Args a) {
-  pa::grp::straus_group<4, false, G>(a);
+__global__ void __launch_bounds__(kWarp) dual_mul_kernel(Args a) {
+  pa::grp::straus_group<2, 0, false, G>(a);
 }
 
 template <int G>
-__global__ void __launch_bounds__(pa::grp::kWarp) base_mul_add_glv_kernel(pa::grp::Args a) {
-  pa::grp::straus_group<4, true, G>(a);
+__global__ void __launch_bounds__(kWarp) quad_mul_kernel(Args a) {
+  pa::grp::straus_group<4, 0, false, G>(a);
+}
+
+template <int G>
+__global__ void __launch_bounds__(kWarp) base_mul_add_kernel(Args a) {
+  pa::grp::straus_group<2, 1, false, G>(a);
+}
+
+template <int G>
+__global__ void __launch_bounds__(kWarp) base_mul_add_glv_kernel(Args a) {
+  pa::grp::straus_group<4, 2, true, G>(a);
 }
 
 template <class A>
@@ -151,64 +122,37 @@ int launch(void (*kernel)(A), const A& a, int blocks, int threads, int smem,
   return (int)cudaGetLastError();
 }
 
-enum Ladder { kDual, kQuad, kGlv };
+enum Ladder { kScalar, kDual, kQuad, kBase, kGlv };
+constexpr int kSources[] = {1, 2, 4, 2, 4};       // lookups a window
+constexpr int kConstTables[] = {0, 0, 0, 1, 2};   // of them constant tables
 
 // Launch a Straus group kernel with the shape the wrapper computed
 // (cuda_ec.launch_shape); a shape that differs from this build's is refused.
 template <Ladder L, int G>
-int launch_straus(const pa::grp::Args& a, int blocks, int threads, int smem,
-                  void* stream) {
+int launch_straus(const Args& a, int blocks, int threads, int smem, void* stream) {
   using S = pa::grp::Shape<G>;
-  const int want_smem = L == kDual ? S::kDualSmem : L == kQuad ? S::kQuadSmem
-                                                               : S::kGlvSmem;
-  if (blocks != S::blocks(a.n) || threads != pa::grp::kWarp || smem != want_smem)
+  if (blocks != S::blocks(a.n) || threads != kWarp ||
+      smem != S::smem(kSources[L], kConstTables[L]))
     return (int)cudaErrorInvalidValue;
-  if constexpr (L == kDual)
+  if constexpr (L == kScalar)
+    return launch(scalar_mul_kernel<G>, a, blocks, threads, smem, stream);
+  else if constexpr (L == kDual)
     return launch(dual_mul_kernel<G>, a, blocks, threads, smem, stream);
   else if constexpr (L == kQuad)
     return launch(quad_mul_kernel<G>, a, blocks, threads, smem, stream);
+  else if constexpr (L == kBase)
+    return launch(base_mul_add_kernel<G>, a, blocks, threads, smem, stream);
   else
     return launch(base_mul_add_glv_kernel<G>, a, blocks, threads, smem, stream);
 }
 
 template <Ladder L>
-int launch_straus(const pa::grp::Args& a, int group, int blocks, int threads, int smem,
+int launch_straus(const Args& a, int group, int blocks, int threads, int smem,
                   void* stream) {
   if (a.n <= 0) return (int)cudaGetLastError();
   if (group == 8) return launch_straus<L, 8>(a, blocks, threads, smem, stream);
   if (group == 4) return launch_straus<L, 4>(a, blocks, threads, smem, stream);
   return (int)cudaErrorInvalidValue;
-}
-
-// ---------------------------------------------------------------------------
-// base_mul_add: g^s * P^t without GLV, one doubling chain over the 64
-// 4-bit windows of the full scalars.
-// Replaces _base_mul_add_kernel (privacy_auction_tpu/ops/pallas_ec.py:496).
-// Per window, in the TPU kernel's order: 4 doublings, the add of the
-// constant window-0 entry s_w*G (affine, Z = 1; read from device memory with
-// the masked select, every lane the same addresses), then the add of the
-// per-lane entry t_w*P.  Per lane: 14 table adds + 64 * (4 doublings +
-// 2 adds); one 1.5 KiB table in local memory.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-base_mul_add_kernel(const int64_t* __restrict__ P, const int64_t* __restrict__ t,
-                    const int64_t* __restrict__ s, const uint32_t* __restrict__ g0,
-                    int64_t* __restrict__ out, int n) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= n) return;
-  Pt T[16];
-  pa::pt_fill_table(T, pa::pt_load_limbs(P + (size_t)lane * 48));
-  const int64_t* tl = t + (size_t)lane * 16;
-  const int64_t* sl = s + (size_t)lane * 16;
-  const Pt* G = reinterpret_cast<const Pt*>(g0);
-  Pt acc = pa::pt_infinity();
-#pragma unroll 1
-  for (int w = kCombWindows - 1; w >= 0; --w) {
-    acc = pa::pt_dbl4(acc);
-    acc = pa::pt_add(acc, pa::pt_select16(G, pa::scalar_digit(sl, w)));
-    acc = pa::pt_add(acc, pa::pt_select16(T, pa::scalar_digit(tl, w)));
-  }
-  pa::pt_store_limbs(out + (size_t)lane * 48, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -254,17 +198,18 @@ int pa_mul_comb(const int64_t* k, const uint32_t* table, int64_t* out, int n,
 }
 
 int pa_scalar_mul(const int64_t* P, const int64_t* k, int64_t* out, int n,
-                  int windows, void* stream) {
-  StrausArgs<1> a{{P}, {k}, out, n, windows};
-  if (n > 0) scalar_mul_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+                  int windows, int group, int blocks, int threads, int smem,
+                  void* stream) {
+  Args a{{P, nullptr, nullptr, nullptr}, {k, nullptr, nullptr, nullptr}, nullptr,
+         nullptr, out, n, windows};
+  return launch_straus<kScalar>(a, group, blocks, threads, smem, stream);
 }
 
 int pa_dual_mul(const int64_t* P1, const int64_t* k1, const int64_t* P2,
                 const int64_t* k2, int64_t* out, int n, int windows, int group,
                 int blocks, int threads, int smem, void* stream) {
-  pa::grp::Args a{{P1, P2, nullptr, nullptr}, {k1, k2, nullptr, nullptr}, nullptr,
-                  nullptr, out, n, windows};
+  Args a{{P1, P2, nullptr, nullptr}, {k1, k2, nullptr, nullptr}, nullptr,
+         nullptr, out, n, windows};
   return launch_straus<kDual>(a, group, blocks, threads, smem, stream);
 }
 
@@ -273,7 +218,7 @@ int pa_quad_mul(const int64_t* P1, const int64_t* k1, const int64_t* P2,
                 const int64_t* P4, const int64_t* k4, int64_t* out, int n,
                 int windows, int group, int blocks, int threads, int smem,
                 void* stream) {
-  pa::grp::Args a{{P1, P2, P3, P4}, {k1, k2, k3, k4}, nullptr, nullptr, out, n, windows};
+  Args a{{P1, P2, P3, P4}, {k1, k2, k3, k4}, nullptr, nullptr, out, n, windows};
   return launch_straus<kQuad>(a, group, blocks, threads, smem, stream);
 }
 
@@ -282,16 +227,16 @@ int pa_base_mul_add_glv(const int64_t* P1, const int64_t* t1, const int64_t* P2,
                         const int64_t* sflags, const uint32_t* g0, int64_t* out,
                         int n, int windows, int group, int blocks, int threads,
                         int smem, void* stream) {
-  pa::grp::Args a{{nullptr, nullptr, P1, P2}, {s1, s2, t1, t2}, sflags, g0, out, n, windows};
+  Args a{{nullptr, nullptr, P1, P2}, {s1, s2, t1, t2}, sflags, g0, out, n, windows};
   return launch_straus<kGlv>(a, group, blocks, threads, smem, stream);
 }
 
 int pa_base_mul_add(const int64_t* P, const int64_t* t, const int64_t* s,
-                    const uint32_t* g0, int64_t* out, int n, void* stream) {
-  if (n > 0)
-    base_mul_add_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-        P, t, s, g0, out, n);
-  return (int)cudaGetLastError();
+                    const uint32_t* g0, int64_t* out, int n, int group, int blocks,
+                    int threads, int smem, void* stream) {
+  Args a{{nullptr, P, nullptr, nullptr}, {s, t, nullptr, nullptr}, nullptr, g0, out, n,
+         pa::grp::kCombWindows};
+  return launch_straus<kBase>(a, group, blocks, threads, smem, stream);
 }
 
 int pa_pt_add(const int64_t* P, const int64_t* Q, int64_t* out, int n, void* stream) {

@@ -10,14 +10,14 @@ fallback: a CPU tensor, a missing `nvcc` or a failed build raises.
 
 | wrapper            | kernel                     | TPU kernel it replaces                  |
 | mul_comb           | mul_comb_kernel<G>         | _mul_base_kernel (pallas_ec.py:538)     |
-| scalar_mul         | scalar_mul_kernel          | _scalar_mul_kernel (pallas_ec.py:346)   |
+| scalar_mul         | scalar_mul_kernel<G>       | _scalar_mul_kernel (pallas_ec.py:346)   |
 | dual_mul           | dual_mul_kernel<G>         | _dual_mul_kernel (pallas_ec.py:366), at 33 and 64 windows |
 | quad_mul           | quad_mul_kernel<G>         | _quad_mul_kernel (pallas_ec.py:404)     |
 | base_mul_add_glv   | base_mul_add_glv_kernel<G> | _base_mul_add_glv_kernel (pallas_ec.py:436) |
-| base_mul_add       | base_mul_add_kernel        | _base_mul_add_kernel (pallas_ec.py:496) |
+| base_mul_add       | base_mul_add_kernel<G>     | _base_mul_add_kernel (pallas_ec.py:496) |
 | pt_add             | pt_add_kernel              | _pt_add_kernel (pallas_ec.py:399)       |
 
-The four `<G>` kernels (GROUP_KERNELS) run G threads per lane with their
+The six `<G>` kernels (GROUP_KERNELS) run G threads per lane with their
 window tables in shared memory (`csrc/ec_group.cuh`); `launch_shape` gives
 their grid, block and dynamic shared memory, which the launcher checks
 against its build.  The constant tables (comb tables, the window-0 tables of
@@ -58,8 +58,9 @@ launch_lanes: dict[tuple[str, int], int] = {}
 # The group kernels' launch shape (csrc/ec_group.cuh): G threads a lane.
 # The Straus ladders (Shape<G>) run one warp of 32 // G lanes a block, with
 # a 16-entry window table of 96 B entries in shared memory per source of
-# each lane (dual_mul: 2; quad_mul: 4; base_mul_add_glv: 2, besides the two
-# constant tables once a block).  mul_comb runs blocks of COMB_WARPS warps
+# each lane (scalar_mul: 1; dual_mul: 2; quad_mul: 4; base_mul_add: 1,
+# besides the constant table of G once a block; base_mul_add_glv: 2,
+# besides the two constant tables of G and phi(G) once a block).  mul_comb runs blocks of COMB_WARPS warps
 # (comb_shape) over a ring of COMB_RING window tables of the comb.
 # GROUP_STEPS: the G launch_shape takes, that of the first (lanes, G) whose
 # lane count the launch does not pass (None: any).  G = 8 serves the small
@@ -70,7 +71,9 @@ launch_lanes: dict[tuple[str, int], int] = {}
 GROUP_STEPS = {"mul_comb": ((4096, 8), (None, 2)),
                "dual_mul": ((2048, 8), (None, 4)),
                "quad_mul": ((2048, 8), (None, 4)),
-               "base_mul_add_glv": ((2048, 8), (None, 4))}
+               "base_mul_add_glv": ((2048, 8), (None, 4)),
+               "scalar_mul": ((2048, 8), (None, 4)),
+               "base_mul_add": ((2048, 8), (None, 4))}
 GROUPS = {k: tuple(g for _, g in steps) for k, steps in GROUP_STEPS.items()}
 GROUP_KERNELS = tuple(GROUP_STEPS)
 SMS = 132                # streaming multiprocessors of an H100 SXM
@@ -92,7 +95,8 @@ def launch_shape(kernel: str, lanes: int,
     if kernel == "mul_comb":
         return comb_shape(lanes, group)
     per_block = WARP // group
-    tables = {"dual_mul": 2 * per_block, "quad_mul": 4 * per_block,
+    tables = {"scalar_mul": per_block, "dual_mul": 2 * per_block,
+              "quad_mul": 4 * per_block, "base_mul_add": 1 + per_block,
               "base_mul_add_glv": 2 + 2 * per_block}[kernel]
     return group, -(-lanes // per_block), WARP, tables * TABLE_BYTES
 
@@ -221,8 +225,8 @@ def build() -> Build:
     lib.pa_dual_mul.argtypes = [P] * 5 + [I] * 6 + [P]
     lib.pa_quad_mul.argtypes = [P] * 9 + [I] * 6 + [P]
     lib.pa_base_mul_add_glv.argtypes = [P] * 9 + [I] * 6 + [P]
-    lib.pa_scalar_mul.argtypes = [P, P, P, I, I, P]
-    lib.pa_base_mul_add.argtypes = [P] * 5 + [I, P]
+    lib.pa_scalar_mul.argtypes = [P, P, P] + [I] * 6 + [P]
+    lib.pa_base_mul_add.argtypes = [P] * 5 + [I] * 5 + [P]
     lib.pa_pt_add.argtypes = [P, P, P, I, P]
     for fn in (lib.pa_mul_comb, lib.pa_dual_mul, lib.pa_quad_mul,
                lib.pa_base_mul_add_glv, lib.pa_scalar_mul, lib.pa_base_mul_add,
@@ -236,11 +240,11 @@ def build() -> Build:
 # the table selects in SASS
 # --------------------------------------------------------------------------
 
-# The kernels that look up window tables by a secret digit, and the name
-# their select functions share (pt_select16, pt_select16_shared; both
-# __noinline__, so each is a function of its own in every kernel's SASS).
-SELECT_KERNELS = KERNELS[:-1]
-SELECT_NAME = "pt_select16"
+# The kernels that look up window tables by a secret digit (every group
+# kernel), and the name of their select function (pt_select16_shared,
+# __noinline__, so it is a function of its own in every kernel's SASS).
+SELECT_KERNELS = GROUP_KERNELS
+SELECT_NAME = "pt_select16_shared"
 ENTRY_BYTES = 96
 _PRED = r"(@!?U?P[T0-9]+\s+)?"
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -411,15 +415,16 @@ def _check_windows(name: str, windows: int):
         raise ValueError(f"{name}: windows={windows} out of range")
 
 
-def scalar_mul(P, k, windows: int = COMB_WINDOWS) -> torch.Tensor:
+def scalar_mul(P, k, windows: int = COMB_WINDOWS, shape=None) -> torch.Tensor:
     """k*P over the low `windows` 4-bit windows (all 64 by default)."""
     (p, s), batch = _lanes("scalar_mul", [P, k], [(3, 16), (16,)])
     _check_windows("scalar_mul", windows)
     n = p.shape[0]
     out = _out(n, p)
     lib = build().lib
-    _check("scalar_mul", lib.pa_scalar_mul(_ptr(p), _ptr(s), _ptr(out), n,
-                                           windows, _stream(p.device)))
+    _check("scalar_mul", lib.pa_scalar_mul(
+        _ptr(p), _ptr(s), _ptr(out), n, windows,
+        *(shape or launch_shape("scalar_mul", n)), _stream(p.device)))
     _count("scalar_mul", n)
     return out.reshape(batch + (3, 16))
 
@@ -478,7 +483,7 @@ def base_mul_add_glv(P1, t1, P2, t2, s1, s2, sflags, g0_tables,
     return out.reshape(batch + (3, 16))
 
 
-def base_mul_add(s, P, t, g0_table) -> torch.Tensor:
+def base_mul_add(s, P, t, g0_table, shape=None) -> torch.Tensor:
     """g^s * P^t without GLV over the 64 4-bit windows of the full scalars;
     g0_table (16, 3, 16): the window-0 comb entries d*G (Z = 1)."""
     (p, tt, ss), batch = _lanes("base_mul_add", [P, t, s],
@@ -492,7 +497,7 @@ def base_mul_add(s, P, t, g0_table) -> torch.Tensor:
     lib = build().lib
     _check("base_mul_add", lib.pa_base_mul_add(
         _ptr(p), _ptr(tt), _ptr(ss), _ptr(words), _ptr(out), n,
-        _stream(p.device)))
+        *(shape or launch_shape("base_mul_add", n)), _stream(p.device)))
     _count("base_mul_add", n)
     return out.reshape(batch + (3, 16))
 

@@ -129,8 +129,9 @@ def test_kernels_match_plain_and_host_on_card(card):
 
 
 # --------------------------------------------------------------------------
-# the group kernels (mul_comb, dual_mul, quad_mul, base_mul_add_glv: 8 or 4
-# threads a lane) at ragged lane counts, and against the JAX package
+# the group kernels (mul_comb, scalar_mul, dual_mul, quad_mul, base_mul_add,
+# base_mul_add_glv: 8 or 4 threads a lane, mul_comb 8 or 2) at ragged lane
+# counts, and against the JAX package
 # --------------------------------------------------------------------------
 
 GROUP_LANES = (1, 15, 17, 300, 2053)   # part of a block, ragged blocks
@@ -141,7 +142,8 @@ ALL_15_FULL = (1 << 256) - 1      # every one of the 64 digits 15
 def _group_inputs(card, lanes, seed):
     """Four points and four 132-bit scalars a lane, then two 256-bit
     scalars, with the edge lanes: an infinity input, zero scalars, all-15
-    digits (lane 0 first, so each lane count has some)."""
+    digits, and n-1 for the 256-bit scalars (lane 0 first, so each lane
+    count has some)."""
     rng = random.Random(seed)
 
     def scalars(bits):
@@ -150,7 +152,8 @@ def _group_inputs(card, lanes, seed):
     pts = [ec.mul_base(C, torch.as_tensor(F.ints_to_limbs(scalars(256))).to(card))
            for _ in range(4)]
     ks = [scalars(132) for _ in range(4)] + [scalars(256) for _ in range(2)]
-    edges = [(0, "all15"), (lanes - 1, "zero"), (lanes // 2, "inf")]
+    edges = [(0, "all15"), (lanes - 1, "zero"), (lanes // 3, "n-1"),
+             (lanes // 2, "inf")]
     for lane, what in edges:
         if what == "all15":
             for i, k in enumerate(ks):
@@ -158,18 +161,23 @@ def _group_inputs(card, lanes, seed):
         elif what == "zero":
             for i in (1, 3, 4):
                 ks[i][lane] = 0
+        elif what == "n-1":
+            for i in (4, 5):
+                ks[i][lane] = C.host.n - 1
     ks = [torch.as_tensor(F.ints_to_limbs(k)).to(card) for k in ks]
     pts[2][edges[-1][0]] = ec.infinity(card)
     return [t for P, k in zip(pts, ks) for t in (P, k)], ks[4:]
 
 
 def test_group_kernels_match_plain_on_card(card):
-    """The four group kernels equal their plain versions exactly at 1, 15,
-    17, 300 and 2053 lanes, at both of their threads a lane, edge lanes
-    included: mul_comb on all-15 and zero scalars; dual_mul at 33 and 64
-    windows on an infinity input, zero scalars and all-15 digits;
+    """The six group kernels equal their plain versions exactly at 1, 15,
+    17, 300 and 2053 lanes, at both of their threads a lane and at
+    launch_shape's own, edge lanes included: mul_comb on all-15, zero and
+    n-1 scalars; scalar_mul, dual_mul at 33 and 64 windows and base_mul_add
+    on an infinity input, zero and n-1 scalars and all-15 digits;
     base_mul_add_glv also with both sign flags set on one lane and each
     set alone on others."""
+    g0b = C.tensor("g0_table", card)
     g0 = C.tensor("g0_tables", card)
     table = C.tensor("comb_table", card)
     for lanes in GROUP_LANES:
@@ -179,6 +187,7 @@ def test_group_kernels_match_plain_on_card(card):
         glv = args[4:] + [args[1], args[3], flags]   # P1 t1 P2 t2 s1 s2 flags
         dual = args[4:6] + args[2:4]                 # P3 k3 P2 k2
         dual64 = [args[4], full[0], args[0], full[1]]
+        bma = [full[1], args[4], full[0]]            # s P t
         cases = {
             "mul_comb": (lambda shape: cuda_ec.mul_comb(table, full[0], shape),
                          ec.mul_comb_plain(C, table, full[0])),
@@ -187,6 +196,12 @@ def test_group_kernels_match_plain_on_card(card):
             "dual_mul_64": (
                 lambda shape: cuda_ec.dual_mul(*dual64, COMB_WINDOWS, shape),
                 ec.dual_mul_windows_plain(C, *dual64, COMB_WINDOWS)),
+            "scalar_mul": (
+                lambda shape: cuda_ec.scalar_mul(args[4], full[0], shape=shape),
+                ec.scalar_mul_windows_plain(C, args[4], full[0])),
+            "base_mul_add": (
+                lambda shape: cuda_ec.base_mul_add(*bma, g0b, shape),
+                ec.base_mul_add_plain(C, *bma)),
             "quad_mul": (lambda shape: cuda_ec.quad_mul(*args, GLV_WINDOWS, shape),
                          ec.quad_mul_windows_plain(C, *args, GLV_WINDOWS)),
             "base_mul_add_glv": (
@@ -239,3 +254,27 @@ def test_group_kernels_hold_jax_golden_on_card(card):
     want[1, 0] = False
     assert torch.equal(seal.verify_round_one_batch(C, bad, ids), want)
     assert cuda_ec.launches["base_mul_add_glv"] >= before["base_mul_add_glv"] + 2
+
+
+def test_ladders64_group_kernels_hold_jax_golden_on_card(card):
+    """scalar_mul and base_mul_add at both of their threads a lane
+    reproduce the JAX package's Pallas outputs (and its XLA ladders and
+    host_curve) limb for limb on the validator's edge lanes: scalars 0, 1
+    and n-1, a point at infinity, a random lane."""
+    import torch_ladder64_cases as L
+
+    def g(name):
+        return L.g(name, card)
+
+    g0b = C.tensor("g0_table", card)
+    lanes = g("k").shape[0]
+    for name in ("scalar_mul", "base_mul_add"):
+        before = cuda_ec.launches[name]
+        for group in cuda_ec.GROUPS[name]:
+            shape = cuda_ec.launch_shape(name, lanes, group=group)
+            if name == "scalar_mul":
+                out = cuda_ec.scalar_mul(g("P"), g("k"), shape=shape)
+            else:
+                out = cuda_ec.base_mul_add(g("k"), g("P"), g("t"), g0b, shape)
+            L.check(name, out)
+        assert cuda_ec.launches[name] == before + len(cuda_ec.GROUPS[name])

@@ -16,7 +16,7 @@
 using namespace pa;
 
 constexpr int kReps = 200;
-constexpr int kOps = 15;
+constexpr int kOps = 13;
 
 __global__ void latency(uint32_t* sink, long long* clocks) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -48,12 +48,10 @@ __global__ void latency(uint32_t* sink, long long* clocks) {
   TIME(a = grp::fe_shfl<4>(a, r & 3))
   TIME(P = pt_add(P, P))
   TIME(P = pt_add_t<FieldFast>(P, P))
-  TIME(P = pt_dbl(P))
   TIME(P = grp::pt_add_grp<4>(P, P, g4))
   TIME(P = grp::pt_add_grp<8>(P, P, g8))
   TIME(P = grp::pt_dbl_grp<4>(P, g4))
   TIME(P = grp::pt_select16_shared(sbase + 16 * threadIdx.x, 512, P.x.w[0] & 15))
-  TIME(P = pt_select16(reinterpret_cast<const Pt*>(smem), P.x.w[0] & 15))
 #undef TIME
   uint32_t s = 0;
   for (int i = 0; i < 8; ++i) s ^= a.w[i] ^ P.x.w[i] ^ P.y.w[i] ^ P.z.w[i];
@@ -64,8 +62,8 @@ int main() {
   const char* names[kOps] = {
       "fe_mul", "fe_mul_fast", "fe_add", "fe_sub", "fe_mul_small",
       "fe_mul_small_fast", "fe_shfl (8 words)", "pt_add (1 thread)",
-      "pt_add_t<FieldFast> (1 thread)", "pt_dbl (1 thread)", "pt_add_grp<4>",
-      "pt_add_grp<8>", "pt_dbl_grp<4>", "pt_select16_shared", "pt_select16"};
+      "pt_add_t<FieldFast> (1 thread)", "pt_add_grp<4>", "pt_add_grp<8>",
+      "pt_dbl_grp<4>", "pt_select16_shared"};
   uint32_t* sink;
   long long* clocks;
   const int smem = 32 * grp::kTableBytes;
