@@ -22,27 +22,43 @@ package, in eight phases; any failure raises and the exit code is non-zero:
    card (exactly: integer limbs, tolerance 0) and sampled lanes against the
    host oracle: `pt_add` at 4096 lanes, and the seven rows of the six group
    kernels (`dual_mul` at 33 and at 64 windows) at 1, 15, 17, 300 and 2053
-   lanes and at the lane counts the auctions, the validator and the ladder
-   bench launch them at, each lane count once, each at both of its threads
+   lanes and at the lane counts the auctions (fused and metered), the
+   validator and the ladder bench launch them at, each lane count once, each at both of its threads
    a lane (8 and 4; `mul_comb` 8 and 2);
-4. verified SEAL auctions at 20x32 and 128x32 bidders x bits from a seed:
-   each must verify and find the plaintext maximum, and each of its four
-   kernels' launch counts must rise during each auction (printed, with the
-   launches by kernel and lane count);
-5. CCS22 auctions at 20x32 and 64x32 from a seed with a random evaluator:
-   each must find the plaintext maximum, `mul_comb`, `dual_mul` and
-   `quad_mul` must rise and no other kernel may run (the protocol has no
-   verification phase); the 20x32 auction's steps run once more with every
-   host synchronization an error; then the setup's SHA-256 alone at 64x32;
-6. one tampered PoKDLog among honest ones is rejected on the card;
+4. verified SEAL auctions at 20x32 and 128x32 bidders x bits from a seed
+   (the fused driver): each must verify and find the plaintext maximum,
+   and each of its four kernels' launch counts must rise during each
+   auction (printed, with the launches by kernel and lane count);
+4b. the role-metered SEAL auction at 20x32 through the CLI's run function
+   (`cli.run_seal`, no warm-up: the build is loaded): it must verify and
+   find the plaintext maximum, and the four kernels must rise; it prints
+   the CLI's per-role report and the launches by kernel and lane count;
+5. CCS22 auctions at 20x32 and 64x32 from a seed with a random evaluator
+   (the fused driver): each must find the plaintext maximum, `mul_comb`,
+   `dual_mul` and `quad_mul` must rise and no other kernel may run (the
+   protocol has no verification phase); the 20x32 auction's steps run once
+   more with every host synchronization an error; then the setup's SHA-256
+   alone at 64x32;
+5b. the role-metered CCS22 auction at 20x32 from the fused 20x32 run's
+   draws: it must find the plaintext maximum and publish the fused run's
+   board (the OT messages G, H, C0, C1 as SEC1 bytes, the rest limb for
+   limb), the same three kernels must rise and no other; it prints the
+   CLI's per-role report;
+6. one tampered PoKDLog among honest ones is rejected on the card; then
+   the metered SEAL loop at 3x3, bids [5, 3, 6], with the honest control
+   and the five tamper hooks of tests/test_adversarial.py
+   (tests/torch_metered_cases.py): the control must verify and match the
+   JAX package's golden vectors (deciding bits, bytes, the hook's calls,
+   the checks run), each tampered auction must return verified=False and
+   max_bid=-1 at the check where the JAX loop stopped;
 7. tools/bench_ladder_torch.py at 8192 lanes (64-window ladders beside
    their GLV forms);
 8. per kernel row, at a shape the 128x32 SEAL auction gives it (8192 lanes
    for the kernels that only the validator reaches), and the group kernels
-   at the other auctions' shapes too (`mul_comb` at 20-20480 lanes,
-   `dual_mul` at 1280 and 4096, `quad_mul` at 160, 320 and 2048,
-   `base_mul_add_glv` at 1280; `scalar_mul` and `base_mul_add` at the
-   validator's 8): the kernel's time (CUDA events), the plain
+   at the other auctions' shapes too, the metered drivers' included
+   (`mul_comb` at 20-20480 lanes, `dual_mul` at 20, 40, 1280 and 4096,
+   `quad_mul` at 20, 160, 320, 2048 and 3840, `base_mul_add_glv` at 40
+   and 1280; `scalar_mul` and `base_mul_add` at the validator's 8): the kernel's time (CUDA events), the plain
    version's time, both outputs compared exactly (`max_abs_err` must be 0),
    the bound from the 32-bit integer multiplies or the bytes it needs, and
    ptxas' registers, stack and spills with the threads a lane, threads a
@@ -100,22 +116,31 @@ RAGGED_LANES = (1, 15, 17, 300, 2053)   # part of a block, ragged blocks
 # the lane counts the auctions launch each group row at: mul_comb at SEAL
 # 20x32 (round one 4nc, commit 5nc) and 128x32, and at CCS22 20x32 and
 # 64x32 (n, nc, 4nc); dual_mul at 2nc of SEAL 20x32 and 128x32 and of CCS22
-# 64x32; quad_mul's proof passes (8n, 16n) at 20x32 and 128x32 and a commit
-# pass; base_mul_add_glv's round-one check (2cn) at 20x32 and 128x32; the
-# 64-window rows at the validator's 8 and the ladder bench's 8192
+# 64x32; quad_mul's proof passes (8n, 16n) and the commit's (4nc, 6nc) at
+# SEAL 20x32 and 128x32, and CCS22's OT masks (nc) at 20x32 and 64x32;
+# base_mul_add_glv's round-one check (2cn) at 20x32 and 128x32; the
+# 64-window rows at the validator's 8 and the ladder bench's 8192.  The metered drivers at 20x32 add: SEAL's round one a step
+# (mul_comb 4n = 80), its check (base_mul_add_glv 2n = 40) and its
+# ciphertexts (dual_mul 2n = 40); CCS22's BES encoding and OT recovery
+# (dual_mul n = 20) and OT reply (quad_mul n = 20)
 AUCTION_LANES = {
-    "mul_comb": (20, 64, 640, 2048, 2560, 3200, 8192, 16384, 20480),
-    "dual_mul": (1280, 4096, 8192), "dual_mul_64": (8, 8192),
-    "quad_mul": (160, 320, 1280, 2048, 2560), "base_mul_add_glv": (1280, 8192),
+    "mul_comb": (20, 64, 80, 640, 2048, 2560, 3200, 8192, 16384, 20480),
+    "dual_mul": (20, 40, 1280, 4096, 8192), "dual_mul_64": (8, 8192),
+    "quad_mul": (20, 160, 320, 640, 1024, 1280, 2048, 2560, 3840, 16384,
+                 24576),
+    "base_mul_add_glv": (40, 1280, 8192),
     "scalar_mul": (8, 8192), "base_mul_add": (8, 8192),
 }
-# the group rows' timed shapes beside their rows (the 128x32 auction's)
+METERED = (20, 32)       # the metered drivers' auctions (SEAL and CCS22)
+# the group rows' timed shapes beside their rows (the 128x32 auction's):
+# the other auctions' shapes, the metered drivers' included
 GROUP_TIMED = (tuple(("mul_comb", n) for n in AUCTION_LANES["mul_comb"]
                      if n != 16384)
-               + (("dual_mul", 1280), ("dual_mul", 4096), ("quad_mul", 160),
-                  ("quad_mul", 320), ("quad_mul", 2048),
-                  ("base_mul_add_glv", 1280), ("scalar_mul", 8),
-                  ("base_mul_add", 8)))
+               + (("dual_mul", 20), ("dual_mul", 40), ("dual_mul", 1280),
+                  ("dual_mul", 4096), ("quad_mul", 20), ("quad_mul", 160),
+                  ("quad_mul", 320), ("quad_mul", 2048), ("quad_mul", 3840),
+                  ("base_mul_add_glv", 40), ("base_mul_add_glv", 1280),
+                  ("scalar_mul", 8), ("base_mul_add", 8)))
 
 
 def log(msg):
@@ -135,7 +160,9 @@ def main() -> int:
     from privacy_auction_tpu_torch.ops import field as F
     from privacy_auction_tpu_torch.ops.sha256 import sha256
     from privacy_auction_tpu_torch.ops.validate import validate_kernels
+    from privacy_auction_tpu_torch import cli
     from privacy_auction_tpu_torch.protocols import ccs22, seal
+    from privacy_auction_tpu_torch.utils import trackers as T
 
     dev = torch.device(DEVICE, 0)
     host = C.host
@@ -308,7 +335,7 @@ def main() -> int:
         t0 = time.perf_counter()
         res = seal.run_auction(C, bids, c, verify=True,
                                generator=torch.Generator().manual_seed(SEED + n),
-                               device=dev, times=times)
+                               device=dev, phase_times=times)
         wall = time.perf_counter() - t0
         counts = dict(cuda_ec.launches)
         if not res.verified or res.max_bid != max(bids):
@@ -325,9 +352,29 @@ def main() -> int:
         log(f"[seal {n}x{c}] launches by kernel@lanes "
             f"{json.dumps(by_lanes(cuda_ec.launch_lanes))}")
 
+    # ---- 4b. the role-metered SEAL auction, through the CLI ----------------------
+    n, c = METERED
+    cuda_ec.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.run_seal(n, c, SEED, verify=True, device=DEVICE, warmup=False)
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_ec.launches)
+    idle = [k for k in SEAL_KERNELS if counts[k] == 0]
+    if rc != 0 or idle:
+        raise AssertionError(f"metered SEAL {n}x{c}: exit code {rc} (0: "
+                             f"verified, the plaintext maximum); kernels {idle} "
+                             "never launched")
+    metered_launches = {"seal": counts}
+    metered_lanes = {"seal": dict(cuda_ec.launch_lanes)}
+    log(f"[seal metered {n}x{c}] verified, the plaintext maximum, wall "
+        f"{wall:.3f} s; launches {json.dumps(counts)}")
+    log(f"[seal metered {n}x{c}] launches by kernel@lanes "
+        f"{json.dumps(by_lanes(cuda_ec.launch_lanes))}")
+
     # ---- 5. CCS22 auctions ---------------------------------------------------------
     ccs22_launches = {}
     ccs22_lanes = {}
+    ccs22_runs = {}
     for n, c in CCS22_AUCTIONS:
         bids = [rng.randrange(1 << c) for _ in range(n)]
         eval_id = rng.randrange(n)
@@ -337,7 +384,8 @@ def main() -> int:
         t0 = time.perf_counter()
         res = ccs22.run_auction(C, bids, c, eval_id,
                                 generator=torch.Generator().manual_seed(SEED + n),
-                                device=dev, times=times)
+                                device=dev, phase_times=times)
+        ccs22_runs[(n, c)] = (bids, eval_id, res.board)
         wall = time.perf_counter() - t0
         counts = dict(cuda_ec.launches)
         if res.max_bid != max(bids):
@@ -394,6 +442,49 @@ def main() -> int:
             f"message, {(shape[-1] + 9 + 63) // 64} blocks, "
             f"{time.perf_counter() - t0:.3f} s")
 
+    # ---- 5b. the role-metered CCS22 auction, from the fused run's draws ------------
+    n, c = METERED
+    bids, eval_id, fused_board = ccs22_runs[METERED]
+    draws = ccs22.draw(C, torch.Generator().manual_seed(SEED + n), n, c, dev)
+    data, role_times, phase_times = T.DataTracker(), T.TimeTracker(), {}
+    comm = T.Ccs22CommTracker(data)
+    comm.account_setup(n, c)
+    cuda_ec.reset_launches()
+    t0 = time.perf_counter()
+    res = ccs22.run_auction(C, bids, c, eval_id, device=dev, draws=draws,
+                            phase_times=phase_times, times=role_times,
+                            trackers=comm)
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_ec.launches)
+    metered_launches["ccs22"] = counts
+    metered_lanes["ccs22"] = dict(cuda_ec.launch_lanes)
+    cli.ccs22_report(n, c, eval_id, DEVICE, role_times, data, phase_times,
+                     wall)
+    idle = [k for k in CCS22_KERNELS if counts[k] == 0]
+    stray = [k for k, v in counts.items() if v and k not in CCS22_KERNELS]
+    if res.max_bid != max(bids) or idle or stray:
+        raise AssertionError(f"metered CCS22 {n}x{c}: max_bid={res.max_bid} "
+                             f"!= {max(bids)}, kernels {idle} never launched, "
+                             f"{stray} launched")
+    differ = [] if torch.equal(res.board.announced, fused_board.announced) \
+        else ["announced"]
+    for part in ("setup", "otr1", "ots"):
+        for name, a, b in zip(getattr(fused_board, part)._fields,
+                              getattr(fused_board, part),
+                              getattr(res.board, part)):
+            if name in ("G", "H", "C0", "C1"):
+                a, b = (ec.serialize_uncompressed(C, x) for x in (a, b))
+            if not torch.equal(a, b):
+                differ.append(f"{part}.{name}")
+    if differ:
+        raise AssertionError(f"metered CCS22 {n}x{c}: board fields {differ} "
+                             "differ from the fused run's")
+    log(f"[ccs22 metered {n}x{c}] evaluator {eval_id}, max_bid={res.max_bid}, "
+        f"the fused run's board, wall {wall:.3f} s; launches "
+        f"{json.dumps(counts)}")
+    log(f"[ccs22 metered {n}x{c}] launches by kernel@lanes "
+        f"{json.dumps(by_lanes(cuda_ec.launch_lanes))}")
+
     # ---- 6. a tampered PoKDLog is rejected ----------------------------------------
     n_t = 8
     ids = torch.arange(n_t, device=dev)
@@ -411,6 +502,27 @@ def main() -> int:
                              f"tampered {bad.tolist()}")
     log("[tamper] the PoKDLog with a flipped rho limb is rejected, its "
         f"{n_t - 1} neighbours pass")
+
+    # the metered loop's honest control and tamper cases, against the JAX
+    # package's golden vectors
+    import pytest
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    import torch_metered_cases as M
+
+    t0 = time.perf_counter()
+    with pytest.MonkeyPatch.context() as mp:
+        M.check_honest(mp, DEVICE)
+    log(f"[tamper] the honest control at {M.SEAL_BIDS}, c = {M.SEAL_C} "
+        "verifies and matches the JAX package's deciding bits, bytes, hook "
+        f"calls and checks ({time.perf_counter() - t0:.3f} s)")
+    for case in M.TAMPER_CASES:
+        t0 = time.perf_counter()
+        with pytest.MonkeyPatch.context() as mp:
+            checks = M.check_tamper(case, mp, DEVICE)
+        name, step, _ = checks[-1]
+        log(f"[tamper] {case}: verified=False, max_bid=-1 at "
+            f"{M.CHECKS[name]} (step {step}), as the JAX package "
+            f"({time.perf_counter() - t0:.3f} s)")
 
     # ---- 7. the ladder bench ------------------------------------------------------
     spec = importlib.util.spec_from_file_location(
@@ -492,6 +604,9 @@ def main() -> int:
             **{f"launches_ccs22_{a}x{b}": (
                 ccs22_lanes[(a, b)].get((name, lanes), 0) if extra
                 else ccs22_launches[(a, b)][name]) for a, b in CCS22_AUCTIONS},
+            **{f"launches_{p}_metered_{METERED[0]}x{METERED[1]}": (
+                metered_lanes[p].get((name, lanes), 0) if extra
+                else metered_launches[p][name]) for p in ("seal", "ccs22")},
             "launches_validator": validator_launches[name],
             "lanes": lanes, "windows": windows.get(name), "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,

@@ -23,6 +23,10 @@ step is point adds and branchless selects (`_scan_steps`, a host loop).  The
 announced bit drives only device-side bookkeeping, so the steps never read
 it back; the run synchronizes once, at the end.
 
+The role-metered driver (`run_auction(times=...)`, `_run_metered`) runs
+each step as the JAX package's does, one call a phase: BES encoding and the
+OT reply are bidder time, both OT receiver calls evaluator time.
+
 Randomness: every scalar enters explicitly (`setup_from`, `ot_receive1_from`,
 `ot_send_from`, `run_auction(draws=...)`), or is drawn from one
 `torch.Generator` in a fixed order; a CPU generator gives the same scalars
@@ -44,7 +48,7 @@ from ..ops import ec
 from ..ops import field as F
 from ..ops.sha256 import digest_to_scalar, sha256
 from .phases import phase_runner
-from .seal import avnet_keys, bids_to_bits
+from .seal import avnet_keys, bids_to_bits, bits_to_int
 
 LIMBS = F.LIMBS
 
@@ -348,20 +352,70 @@ class AuctionResult(NamedTuple):
     board: Board
 
 
+def _run_metered(curve: Curve, pp: PubParams, pub: SetupPub, bits, eval_id,
+                 draws: Draws, phase):
+    """The c steps as one call a phase and role, as the JAX package's
+    role-metered driver runs them: BES encoding and the OT reply are bidder
+    time, both OT receiver calls evaluator time.  Fed the fused driver's
+    draws, it announces the same bits.  Returns (announced (c,) bool, OTR1
+    and OTS with leading axis c)."""
+    from ..utils.trackers import CATEGORY_BIDDER, CATEGORY_EVALUATOR
+
+    n, c = bits.shape
+    sec, beta = draws.sec, draws.beta
+    eid = torch.as_tensor(eval_id, device=bits.device).reshape(1)
+    in_race = torch.ones((n,), dtype=F.DTYPE, device=bits.device)
+    announced, r1s, otss = [], [], []
+    for step in range(c):
+        d = bits[:, step] & in_race
+        B = phase("bes_encode", bes_encode, curve, pub.X[:, step],
+                  sec.x[:, step], sec.r[:, step], d, role=CATEGORY_BIDDER)
+        r1 = phase("ot_receive1", ot_receive1_from, curve, pp, beta[:, step],
+                   d.index_select(0, eid), draws.k_rand[:, step],
+                   role=CATEGORY_EVALUATOR)
+        ots = phase("ot_send", ot_send_from, curve, pp, r1, B,
+                    sec.s[:, step], sec.t[:, step], draws.m1k[:, step],
+                    role=CATEGORY_BIDDER)
+        ann = phase("ot_receive2", ot_receive2, curve, ots, beta[:, step], B,
+                    d, eid, role=CATEGORY_EVALUATOR)
+        in_race = update_race(in_race, d, ann)
+        announced.append(ann)
+        r1s.append(r1)
+        otss.append(ots)
+    return (torch.stack(announced),
+            OTR1(*(torch.stack(f) for f in zip(*r1s))),
+            OTS(*(torch.stack(f) for f in zip(*otss))))
+
+
 def run_auction(curve: Curve, bids, c: int, eval_id: int = 0,
                 generator: torch.Generator | None = None, device="cuda",
-                times: dict | None = None,
-                draws: Draws | None = None) -> AuctionResult:
+                phase_times: dict | None = None,
+                draws: Draws | None = None, times=None,
+                trackers=None) -> AuctionResult:
     """Full CCS22 auction for integer bids, the evaluator at lane eval_id
-    (also a bidder): setup, the hoisted ladder passes, then the c steps,
-    with one synchronization at the end.
+    (also a bidder).
+
+    The fused driver (the default) runs the setup, the hoisted ladder
+    passes, then the c steps, with one synchronization at the end.  With
+    `times` the steps run as one call a phase and role (`_run_metered`)
+    from the same draws; the board holds the same messages (OT messages
+    that the fused driver assembles from its hoisted passes agree as
+    points, not as projective limbs).
 
     generator: the source of every scalar when `draws` is not given (a
     fresh, OS-seeded CPU generator when None; not a cryptographic
-    generator).  times: optional dict; each phase's wall time in seconds
-    (setup, precompute, steps), taken after a device synchronize.  Each
-    phase runs in a `torch.profiler` range named `ccs22.<phase>`.
+    generator).  phase_times: optional dict; each phase's wall time in
+    seconds, taken after a device synchronize, is added under its name.
+    Each phase runs in a `torch.profiler` range named `ccs22.<phase>`.
+    times: optional `utils.trackers.TimeTracker`: the setup, BES encoding
+    and the OT reply accrue to "bidder", both OT receiver calls to
+    "evaluator"; then 1/n of the bidder time moves to the evaluator, whose
+    own bidder lane the batched calls carry.  trackers: optional
+    `utils.trackers.Ccs22CommTracker`, charged each step's messages (the
+    caller charges the setup, as the CLI does).
     """
+    from ..utils.trackers import CATEGORY_BIDDER, CATEGORY_EVALUATOR
+
     n = len(bids)
     bits = torch.as_tensor(bids_to_bits(bids, c), device=device)
     bid_scalars = torch.as_tensor(
@@ -373,16 +427,31 @@ def run_auction(curve: Curve, bids, c: int, eval_id: int = 0,
         draws = draw(curve, generator, n, c, device)
     pp = pp_or_make(curve, device)
 
-    phase = phase_runner("ccs22", times, bits.device)
+    phase = phase_runner("ccs22", phase_times, bits.device, times)
+    bidder_t0 = (times.get_category_time_seconds(CATEGORY_BIDDER)
+                 if times is not None else 0.0)
     pub = phase("setup", setup_from, curve, pp, bid_scalars, draws.sec,
-                eval_id, draws.beta)
-    pre = phase("precompute", _precompute, curve, pp, pub.X, draws)
-    announced, r1, ots = phase("steps", _scan_steps, curve, pre,
-                               pp.g1.expand(n, 3, LIMBS), bits, eval_id)
+                eval_id, draws.beta, role=CATEGORY_BIDDER)
+    if times is None:
+        pre = phase("precompute", _precompute, curve, pp, pub.X, draws)
+        announced, r1, ots = phase("steps", _scan_steps, curve, pre,
+                                   pp.g1.expand(n, 3, LIMBS), bits, eval_id)
+    else:
+        announced, r1, ots = _run_metered(curve, pp, pub, bits, eval_id,
+                                          draws, phase)
+        if n > 1:
+            # the batched bidder calls carry the evaluator's own bidder
+            # lane; the reference's bidder loops leave the evaluator out
+            # (`CCS22/main.cpp:95,111`), so 1/n of that time is its
+            shift = (times.get_category_time_seconds(CATEGORY_BIDDER)
+                     - bidder_t0) / n
+            times.add_time(CATEGORY_BIDDER, -shift)
+            times.add_time(CATEGORY_EVALUATOR, shift)
     deciding = announced.cpu().numpy().astype(np.uint8)
-    max_bid = 0
-    for bit in deciding:
-        max_bid = (max_bid << 1) | int(bit)
-    return AuctionResult(max_bid=max_bid, deciding_bits=deciding,
+    if trackers is not None:
+        for _ in range(c):
+            trackers.account_step(n)
+    return AuctionResult(max_bid=bits_to_int(deciding),
+                         deciding_bits=deciding,
                          board=Board(setup=pub, otr1=r1, ots=ots,
                                      announced=announced))

@@ -1,20 +1,24 @@
 """SEAL protocol: sealed-bid first-price auction without auctioneers, in
 PyTorch.
 
-Counterpart of the fused driver of `privacy_auction_tpu/protocols/seal.py`
-(`run_auction`'s default path): commit, commit verification, the hoisted
-state-independent passes for all c steps (round-1 keygens and their
-PoKDLog checks, AV-net keys, both ciphertext candidates), then the c
-auction steps.  Each step generates and verifies a Stage1 or Stage2 proof
-(one ladder pass each) and runs the round-3 veto sum.
+Counterpart of `privacy_auction_tpu/protocols/seal.py`, with both of its
+drivers.  The fused driver (`run_auction`'s default path): commit, commit
+verification, the hoisted state-independent passes for all c steps
+(round-1 keygens and their PoKDLog checks, AV-net keys, both ciphertext
+candidates), then the c auction steps.  Each step generates and verifies a
+Stage1 or Stage2 proof (one ladder pass each) and runs the round-3 veto
+sum.  The role-metered driver (`_run_metered`, with `times` or `tamper`):
+one call a round and step, each prover call timed as bidder time and each
+check as verifier time, the messages passed through a board hook, and the
+first failed check ending the auction.
 
-The steps are a host loop.  Stage selection branches on the public
+The steps are host loops.  Stage selection branches on the public
 junction flag, read with one `.item()` per step; the per-bidder work stays
-branchless.  Every phase is one batched computation over all n bidders
+branchless.  Every call is one batched computation over all n bidders
 (and all c bits or steps where the phase allows).
 
-Randomness comes from one `torch.Generator`, drawn in a fixed order; a
-CPU generator gives the same nonces on every device.
+Randomness comes from one `torch.Generator`, drawn in a fixed order that
+both drivers share; a CPU generator gives the same nonces on every device.
 """
 
 from __future__ import annotations
@@ -52,15 +56,27 @@ class CommitmentSec(NamedTuple):
 
 
 class RoundOnePub(NamedTuple):
-    X: torch.Tensor  # (c, n, 3, L) g^x
-    R: torch.Tensor  # (c, n, 3, L) g^r
+    """Round-1 keys and their PoKDLogs: fields (n, ...) at one step, or
+    (c, n, ...) for all steps."""
+
+    X: torch.Tensor  # g^x
+    R: torch.Tensor  # g^r
     pok_x: nizk.PoKDLog
     pok_r: nizk.PoKDLog
 
 
 class RoundOneSec(NamedTuple):
-    x: torch.Tensor  # (c, n, L)
-    r: torch.Tensor  # (c, n, L)
+    x: torch.Tensor  # (n, L) or (c, n, L)
+    r: torch.Tensor
+
+
+class RoundTwoPub(NamedTuple):
+    """A step's ciphertexts and stage proof; exactly one of proof1 (Stage1,
+    before the junction) and proof2 (Stage2, after it) is set."""
+
+    b: torch.Tensor  # (n, 3, L)
+    proof1: nizk.PoWFStage1 | None
+    proof2: nizk.PoWFStage2 | None
 
 
 class StepInfo(NamedTuple):
@@ -74,10 +90,19 @@ class StepInfo(NamedTuple):
     d: torch.Tensor   # (n,)     effective encoded bit
 
 
+class Board(NamedTuple):
+    """Every message an auction published, as the verifiers read them."""
+
+    commit: CommitmentPub
+    round1: RoundOnePub          # fields (c, n, ...)
+    round2: tuple                # one RoundTwoPub a step
+
+
 class AuctionResult(NamedTuple):
     max_bid: int
     verified: bool
     deciding_bits: np.ndarray  # (c,) uint8
+    board: Board | None = None  # None when a check failed
 
 
 # Maximum supported bid bit-length (the JAX package's C_MAX).
@@ -142,33 +167,52 @@ def verify_commit(curve: Curve, pub: CommitmentPub, ids):
                                  pub.phi, pub.A, pub.B, ids_nc, steps_nc)
 
 
-def round_one_batch(curve: Curve, generator, n: int, c: int, ids):
-    """Round-1 keys X = g^x, R = g^r and their PoKDLogs for all c steps in
-    one pass (they do not depend on the auction state).  Leading axes
-    (c, n)."""
-    fn = curve.fn
-    dev = ids.device
-    xr = F.random(fn, generator, (2, c, n), dev)
-    v = F.random(fn, generator, (2, c, n), dev)
+def draw_round_one(curve: Curve, generator, n: int, c: int, device):
+    """All c steps' round-1 scalars, in the order both drivers draw them:
+    the keys xr = (x, r) and then the Schnorr nonces v, each (2, c, n, L)."""
+    xr = F.random(curve.fn, generator, (2, c, n), device)
+    return xr, F.random(curve.fn, generator, (2, c, n), device)
+
+
+def round_one_from(curve: Curve, xr, v, ids, steps):
+    """Round-1 keys X = g^x, R = g^r and their PoKDLogs from the keys
+    xr (2, ..., L) and nonces v (2, ..., L), in one fixed-base pass over
+    the keys and nonce commitments; the step index (an int, or a tensor
+    broadcast to xr's batch) is bound into both transcripts.  ids (n,)."""
     pts4 = ec.mul_base(curve, torch.cat([xr, v], dim=0))
     pts, eps = pts4[:2], pts4[2:]
-    steps = torch.arange(c, device=dev)[None, :, None].expand(2, c, n)
     pok_x, pok_r = _split(nizk.gen_pokdlog_from(
-        curve, v, eps, pts, xr, ids.expand(2, c, n), steps))
+        curve, v, eps, pts, xr, ids.expand(xr.shape[:-1]), steps))
     return (RoundOnePub(X=pts[0], R=pts[1], pok_x=pok_x, pok_r=pok_r),
             RoundOneSec(x=xr[0], r=xr[1]))
+
+
+def verify_round_one(curve: Curve, pub: RoundOnePub, ids, steps):
+    """Both PoKDLogs of every party in one pass -> bool over pub.X's batch."""
+    ok = nizk.ver_pokdlog(
+        curve,
+        nizk.PoKDLog(torch.stack([pub.pok_x.eps, pub.pok_r.eps]),
+                     torch.stack([pub.pok_x.rho, pub.pok_r.rho])),
+        torch.stack([pub.X, pub.R]), ids.expand((2,) + pub.X.shape[:-2]),
+        steps)
+    return ok[0] & ok[1]
+
+
+def _all_steps(c: int, n: int, device):
+    return torch.arange(c, device=device)[None, :, None].expand(2, c, n)
+
+
+def round_one_batch(curve: Curve, generator, n: int, c: int, ids):
+    """Round-1 keys and PoKDLogs for all c steps in one pass (they do not
+    depend on the auction state).  Leading axes (c, n)."""
+    xr, v = draw_round_one(curve, generator, n, c, ids.device)
+    return round_one_from(curve, xr, v, ids, _all_steps(c, n, ids.device))
 
 
 def verify_round_one_batch(curve: Curve, pub: RoundOnePub, ids):
     """All c steps' round-1 proofs verified in one pass -> (c, n) bool."""
     c, n = pub.X.shape[:2]
-    steps = torch.arange(c, device=ids.device)[None, :, None].expand(2, c, n)
-    ok = nizk.ver_pokdlog(
-        curve,
-        nizk.PoKDLog(torch.stack([pub.pok_x.eps, pub.pok_r.eps]),
-                     torch.stack([pub.pok_x.rho, pub.pok_r.rho])),
-        torch.stack([pub.X, pub.R]), ids.expand(2, c, n), steps)
-    return ok[0] & ok[1]
+    return verify_round_one(curve, pub, ids, _all_steps(c, n, ids.device))
 
 
 def avnet_keys(curve: Curve, X):
@@ -186,11 +230,75 @@ def avnet_keys_steps(curve: Curve, X):
     return avnet_keys(curve, X.movedim(1, 0)).movedim(0, 1)
 
 
-def _b01(curve: Curve, Y_all, R_all, x_all):
-    """Both ciphertext candidates Y^x / R^x for every step: (2, c, n, 3, L)."""
-    c, n = x_all.shape[:2]
-    return ec.scalar_mul(curve, torch.stack([Y_all, R_all]),
-                         x_all.expand(2, c, n, LIMBS))
+def _b01(curve: Curve, Y, R, x):
+    """Both ciphertext candidates Y^x / R^x: Y, R (..., 3, L), x (..., L)
+    -> (2, ..., 3, L)."""
+    return ec.scalar_mul(curve, torch.stack([Y, R]), x.expand((2,) + x.shape))
+
+
+def _ciphertext(curve: Curve, Y, R, x, d):
+    """A step's ciphertexts b = Y^x (d = 0) | R^x (d = 1), computed inside
+    the step: one scalar-mult pass over its 2n lanes, then a select."""
+    b0, b1 = _b01(curve, Y, R, x)
+    return ec.select(d == 0, b0, b1)
+
+
+def round_two_stage1(curve: Curve, generator, sec: RoundOneSec,
+                     pub: RoundOnePub, Y, commit_pub: CommitmentPub,
+                     commit_sec: CommitmentSec, d, ids, step: int, b=None):
+    """Round 2 before the junction: the ciphertexts (computed here unless
+    given) and their Stage1 proof.  sec, pub: this step's round-1 secrets
+    and keys; Y: its AV-net keys; d (n,): the effective bits.  Returns
+    (RoundTwoPub, StepInfo)."""
+    if b is None:
+        b = _ciphertext(curve, Y, pub.R, sec.x, d)
+    proof = nizk.gen_powfstage1(
+        curve, generator, pub.X, Y, pub.R, commit_pub.phi[:, step],
+        commit_pub.A[:, step], commit_pub.B[:, step], sec.x,
+        commit_sec.alpha[:, step], d, ids, step, b)
+    return (RoundTwoPub(b=b, proof1=proof, proof2=None),
+            StepInfo(X=pub.X, R=pub.R, Y=Y, b=b, x=sec.x, d=d))
+
+
+def _stage2_points(pub: RoundOnePub, Y, commit_pub: CommitmentPub,
+                   prev: StepInfo, step: int):
+    return dict(Xi=pub.X, Ri=pub.R, Yi=Y, Bj=prev.b, Xj=prev.X, Rj=prev.R,
+                Yj=prev.Y, Ci=commit_pub.phi[:, step], A=commit_pub.A[:, step],
+                B=commit_pub.B[:, step])
+
+
+def round_two_stage2(curve: Curve, generator, sec: RoundOneSec,
+                     pub: RoundOnePub, Y, commit_pub: CommitmentPub,
+                     commit_sec: CommitmentSec, d, prev: StepInfo, ids,
+                     step: int, b=None):
+    """Round 2 after the junction: the ciphertexts and their Stage2 proof
+    against prev, the last deciding step (its x and d are the prover's
+    own secrets).  Returns (RoundTwoPub, StepInfo)."""
+    if b is None:
+        b = _ciphertext(curve, Y, pub.R, sec.x, d)
+    proof = nizk.gen_powfstage2(
+        curve, generator, _stage2_points(pub, Y, commit_pub, prev, step),
+        sec.x, prev.x, commit_sec.alpha[:, step], d, prev.d, ids, step, b)
+    return (RoundTwoPub(b=b, proof1=None, proof2=proof),
+            StepInfo(X=pub.X, R=pub.R, Y=Y, b=b, x=sec.x, d=d))
+
+
+def verify_round_two_stage1(curve: Curve, pub2: RoundTwoPub,
+                            pub1: RoundOnePub, Y, commit_pub: CommitmentPub,
+                            ids, step: int):
+    """-> (n,) bool."""
+    return nizk.ver_powfstage1(
+        curve, pub2.proof1, pub2.b, pub1.X, Y, pub1.R,
+        commit_pub.phi[:, step], commit_pub.A[:, step],
+        commit_pub.B[:, step], ids, step)
+
+
+def verify_round_two_stage2(curve: Curve, pub2: RoundTwoPub,
+                            pub1: RoundOnePub, Y, commit_pub: CommitmentPub,
+                            prev: StepInfo, ids, step: int):
+    """-> (n,) bool."""
+    pts = dict(_stage2_points(pub1, Y, commit_pub, prev, step), Bi=pub2.b)
+    return nizk.ver_powfstage2(curve, pub2.proof2, pts, ids, step)
 
 
 def round_three(curve: Curve, b):
@@ -200,15 +308,38 @@ def round_three(curve: Curve, b):
 
 
 # --------------------------------------------------------------------------
-# driver
+# drivers
 # --------------------------------------------------------------------------
 
-class Precomputed(NamedTuple):
-    """The state-independent streams of all c steps."""
+def _at(tree, i):
+    """Entry i along the leading axis of every tensor of a (nested)
+    NamedTuple."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return type(tree)(*(_at(t, i) for t in tree))
 
-    X: torch.Tensor     # (c, n, 3, L)
-    R: torch.Tensor
-    x: torch.Tensor     # (c, n, L)
+
+def _stack(trees):
+    """The (nested) NamedTuples of `trees` stacked along a new axis 0."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    return type(first)(*(_stack(list(f)) for f in zip(*trees)))
+
+
+def bits_to_int(deciding) -> int:
+    """Deciding bits, most significant first -> the max bid."""
+    max_bid = 0
+    for bit in deciding:
+        max_bid = (max_bid << 1) | int(bit)
+    return max_bid
+
+
+class Precomputed(NamedTuple):
+    """The state-independent streams of all c steps (leading axis c)."""
+
+    pub1: RoundOnePub
+    sec1: RoundOneSec
     Y: torch.Tensor     # (c, n, 3, L)
     b0: torch.Tensor    # (c, n, 3, L) Y^x
     b1: torch.Tensor    # (c, n, 3, L) R^x
@@ -217,57 +348,157 @@ class Precomputed(NamedTuple):
 def run_steps(curve: Curve, generator, pre: Precomputed, bits, ids,
               commit_pub: CommitmentPub, commit_sec: CommitmentSec,
               verify: bool):
-    """The c auction steps, most significant bit first.  Returns
-    (deciding (c,) list of bool, ok () bool tensor)."""
+    """The fused driver's c auction steps, most significant bit first.
+    Returns (deciding (c,) list of bool, ok () bool tensor, the steps'
+    RoundTwoPub)."""
     n, c = bits.shape
-    dev = bits.device
-    in_race = torch.ones((n,), dtype=F.DTYPE, device=dev)
+    in_race = torch.ones((n,), dtype=F.DTYPE, device=bits.device)
     junction = False
     prev = None
-    ok = torch.ones((), dtype=torch.bool, device=dev)
-    deciding = []
+    ok = torch.ones((), dtype=torch.bool, device=bits.device)
+    deciding, round2 = [], []
     for s in range(c):
         d = bits[:, s] & in_race
         b = ec.select(d == 0, pre.b0[s], pre.b1[s])
-        X, R, Y, x = pre.X[s], pre.R[s], pre.Y[s], pre.x[s]
-        phi, A, B = commit_pub.phi[:, s], commit_pub.A[:, s], commit_pub.B[:, s]
-        alpha = commit_sec.alpha[:, s]
+        pub1, sec1, Y = _at(pre.pub1, s), _at(pre.sec1, s), pre.Y[s]
         if not junction:
-            proof = nizk.gen_powfstage1(curve, generator, X, Y, R, phi, A, B,
-                                        x, alpha, d, ids, s, b)
+            pub2, info = round_two_stage1(curve, generator, sec1, pub1, Y,
+                                          commit_pub, commit_sec, d, ids, s, b)
             if verify:
-                ok = ok & nizk.ver_powfstage1(curve, proof, b, X, Y, R, phi,
-                                              A, B, ids, s).all()
+                ok = ok & verify_round_two_stage1(curve, pub2, pub1, Y,
+                                                  commit_pub, ids, s).all()
         else:
-            pts = dict(Xi=X, Ri=R, Yi=Y, Bj=prev.b, Xj=prev.X, Rj=prev.R,
-                       Yj=prev.Y, Ci=phi, A=A, B=B)
-            proof = nizk.gen_powfstage2(curve, generator, pts, x, prev.x,
-                                        alpha, d, prev.d, ids, s, b)
+            pub2, info = round_two_stage2(curve, generator, sec1, pub1, Y,
+                                          commit_pub, commit_sec, d, prev,
+                                          ids, s, b)
             if verify:
-                ok = ok & nizk.ver_powfstage2(curve, proof, dict(pts, Bi=b),
-                                              ids, s).all()
+                ok = ok & verify_round_two_stage2(curve, pub2, pub1, Y,
+                                                  commit_pub, prev, ids,
+                                                  s).all()
+        round2.append(pub2)
         step_deciding = bool(round_three(curve, b).item())
         deciding.append(step_deciding)
         if step_deciding:
-            prev = StepInfo(X=X, R=R, Y=Y, b=b, x=x, d=d)
+            prev = info
             in_race = in_race & d
             junction = True
-    return deciding, ok
+    return deciding, ok, tuple(round2)
+
+
+def _run_metered(curve: Curve, generator, bits, ids, verify: bool, phase,
+                 trackers, tamper) -> AuctionResult:
+    """The host loop of one call a round, as the JAX package's
+    `run_auction` runs it for per-role times and the tamper hook: each
+    prover call is bidder time, each check verifier time, and the first
+    failed check ends the auction.  `tamper(phase, step, pub)` gives what
+    lands on the board for "commit", "round1" and "round2"; the verifiers
+    and round 3 read the board, the honest provers their own values.  The
+    nonces are drawn in the fused driver's order."""
+    from ..utils.trackers import CATEGORY_BIDDER, CATEGORY_VERIFIER
+
+    n, c = bits.shape
+    failed = AuctionResult(max_bid=-1, verified=False,
+                           deciding_bits=np.zeros(c, np.uint8))
+
+    def board(name, step, pub):
+        return tamper(name, step, pub) if tamper is not None else pub
+
+    def bidder(name, fn, *args):
+        return phase(name, fn, *args, role=CATEGORY_BIDDER)
+
+    def checked(name, fn, *args):
+        """Runs a check as verifier time: True when it passed or verify is
+        off."""
+        if not verify:
+            return True
+        return bool(phase(name, fn, *args, role=CATEGORY_VERIFIER).all())
+
+    commit_pub, commit_sec = bidder("commit", commit, curve, generator, bits,
+                                    ids)
+    board_commit = board("commit", None, commit_pub)
+    if not checked("verify_commit", verify_commit, curve, board_commit, ids):
+        return failed
+    if trackers is not None:
+        trackers.account_commit(n, c)
+
+    xr, v = draw_round_one(curve, generator, n, c, bits.device)
+    in_race = torch.ones((n,), dtype=F.DTYPE, device=bits.device)
+    junction = False
+    prev = None
+    deciding, round1, round2 = np.zeros(c, np.uint8), [], []
+    for step in range(c):
+        pub1, sec1 = bidder("round_one", round_one_from, curve, xr[:, step],
+                            v[:, step], ids, step)
+        board_pub1 = board("round1", step, pub1)
+        if not checked("verify_round_one", verify_round_one, curve,
+                       board_pub1, ids, step):
+            return failed
+        d = bits[:, step] & in_race
+        Y = bidder("avnet", avnet_keys, curve, pub1.X)
+        board_Y = Y if board_pub1 is pub1 else avnet_keys(curve, board_pub1.X)
+        if not junction:
+            pub2, info = bidder("round_two", round_two_stage1, curve,
+                                generator, sec1, pub1, Y, commit_pub,
+                                commit_sec, d, ids, step)
+            board_pub2 = board("round2", step, pub2)
+            ok = checked("verify_round_two", verify_round_two_stage1, curve,
+                         board_pub2, board_pub1, board_Y, board_commit, ids,
+                         step)
+        else:
+            pub2, info = bidder("round_two", round_two_stage2, curve,
+                                generator, sec1, pub1, Y, commit_pub,
+                                commit_sec, d, prev, ids, step)
+            board_pub2 = board("round2", step, pub2)
+            ok = checked("verify_round_two", verify_round_two_stage2, curve,
+                         board_pub2, board_pub1, board_Y, board_commit, prev,
+                         ids, step)
+        if not ok:
+            return failed
+        if trackers is not None:
+            trackers.account_step(n, stage2=junction)
+        round1.append(board_pub1)
+        round2.append(board_pub2)
+        step_deciding = bool(bidder("round_three", round_three, curve,
+                                    board_pub2.b).item())
+        deciding[step] = step_deciding
+        if step_deciding:
+            in_race = in_race & d
+            junction = True
+            prev = info
+    return AuctionResult(max_bid=bits_to_int(deciding), verified=True,
+                         deciding_bits=deciding,
+                         board=Board(commit=board_commit,
+                                     round1=_stack(round1),
+                                     round2=tuple(round2)))
 
 
 def run_auction(curve: Curve, bids, c: int, verify: bool = True,
-                generator: torch.Generator | None = None,
-                device="cuda", times: dict | None = None) -> AuctionResult:
-    """Full SEAL auction for integer bids: commit -> verify -> hoisted
-    passes -> c steps.  A failed verification gives verified=False and
-    max_bid=-1, as in the JAX package.
+                generator: torch.Generator | None = None, device="cuda",
+                phase_times: dict | None = None, times=None, trackers=None,
+                tamper=None) -> AuctionResult:
+    """Full SEAL auction for integer bids.  A failed verification gives
+    verified=False and max_bid=-1, as in the JAX package.
+
+    The fused driver (the default) runs commit, its check, the hoisted
+    passes of all c steps, then the steps.  With `times` or `tamper` the
+    host loop of one call a round runs instead (`_run_metered`); from the
+    same generator both publish the same board and draw the same nonces.
 
     generator: the source of every nonce (a fresh, OS-seeded CPU generator
     when None).  Like the JAX package's PRNG keys, it is not a
     cryptographic generator.
-    times: optional dict; each phase's wall time in seconds, taken after a
-    device synchronize, is stored under the phase's name.
-    Each phase runs in a `torch.profiler` range named `seal.<phase>`.
+    phase_times: optional dict; each phase's wall time in seconds, taken
+    after a device synchronize, is added under the phase's name.  Each
+    phase runs in a `torch.profiler` range named `seal.<phase>`.
+    times: optional `utils.trackers.TimeTracker`: prover calls accrue to
+    the "bidder" category (one batched call serves all n bidders, so one
+    bidder's time is the total / n), checks to "verifier" (each proof is
+    checked once, one reference verifier's work).
+    trackers: optional `utils.trackers.SealCommTracker`, charged the
+    commit and each step's messages.
+    tamper: optional hook `tamper(phase, step, pub) -> pub`, phase in
+    {"commit", "round1", "round2"} (step None for the commit): what it
+    returns lands on the board, as a malicious party would publish it.
     """
     if generator is None:
         generator = torch.Generator()
@@ -275,8 +506,11 @@ def run_auction(curve: Curve, bids, c: int, verify: bool = True,
     n = len(bids)
     bits = torch.as_tensor(bids_to_bits(bids, c), device=device)
     ids = torch.arange(n, device=device)
+    phase = phase_runner("seal", phase_times, bits.device, times)
+    if times is not None or tamper is not None:
+        return _run_metered(curve, generator, bits, ids, verify, phase,
+                            trackers, tamper)
 
-    phase = phase_runner("seal", times, bits.device)
     ok = torch.ones((), dtype=torch.bool, device=bits.device)
     commit_pub, commit_sec = phase("commit", commit, curve, generator, bits, ids)
     if verify:
@@ -288,15 +522,20 @@ def run_auction(curve: Curve, bids, c: int, verify: bool = True,
                         lambda: verify_round_one_batch(curve, pub1, ids).all())
     Y_all = phase("avnet", avnet_keys_steps, curve, pub1.X)
     b01 = phase("b01", _b01, curve, Y_all, pub1.R, sec1.x)
-    pre = Precomputed(X=pub1.X, R=pub1.R, x=sec1.x, Y=Y_all, b0=b01[0],
-                      b1=b01[1])
-    deciding, ok_steps = phase("steps", run_steps, curve, generator, pre, bits,
-                               ids, commit_pub, commit_sec, verify)
+    pre = Precomputed(pub1=pub1, sec1=sec1, Y=Y_all, b0=b01[0], b1=b01[1])
+    deciding, ok_steps, round2 = phase("steps", run_steps, curve, generator,
+                                       pre, bits, ids, commit_pub, commit_sec,
+                                       verify)
+    if trackers is not None:
+        trackers.account_commit(n, c)
+        stage2 = False
+        for bit in deciding:
+            trackers.account_step(n, stage2=stage2)
+            stage2 = stage2 or bit
     if verify and not bool((ok & ok_steps).item()):
         return AuctionResult(max_bid=-1, verified=False,
                              deciding_bits=np.zeros(c, np.uint8))
-    max_bid = 0
-    for bit in deciding:
-        max_bid = (max_bid << 1) | int(bit)
-    return AuctionResult(max_bid=max_bid, verified=True,
-                         deciding_bits=np.asarray(deciding, np.uint8))
+    return AuctionResult(max_bid=bits_to_int(deciding), verified=True,
+                         deciding_bits=np.asarray(deciding, np.uint8),
+                         board=Board(commit=commit_pub, round1=pub1,
+                                     round2=round2))

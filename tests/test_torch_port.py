@@ -30,6 +30,7 @@ MODULES = [
     "privacy_auction_tpu_torch.protocols.seal",
     "privacy_auction_tpu_torch.utils.host_curve",
     "privacy_auction_tpu_torch.utils.log",
+    "privacy_auction_tpu_torch.utils.trackers",
 ]
 
 
@@ -70,24 +71,35 @@ def _check_cuda_entry_points_raise_without_a_card():
 def _check_cli_exit_codes(capsys, monkeypatch):
     from privacy_auction_tpu_torch import cli
 
+    # --cold: no warm-up; the metered driver reports time per role
     assert cli.main(["seal", "2", "1", "--seed", "3", "--no-verify",
-                     "--device", "cpu"]) == 0
-    assert "OK: maxBid" in capsys.readouterr().out
-    # ccs22: the exit code follows the auction's max bid (the auction itself
-    # is held to the JAX package in tests/test_torch_ccs22*.py)
+                     "--device", "cpu", "--cold"]) == 0
+    out = capsys.readouterr().out
+    assert "OK: maxBid" in out and "Time (one verifier)" in out
+    # the exit code follows the auction's max bid (the auctions themselves
+    # are held to the JAX package in tests/test_torch_ccs22*.py and
+    # tests/test_torch_seal*.py); by default one warm-up auction of
+    # cli.WARMUP_N x cli.WARMUP_C runs first, and --fast takes the fused
+    # driver, with no time per role
     runs = []
 
-    def auction(curve, bids, c, eval_id, generator, device, times):
-        runs.append((eval_id, device))
-        return ccs22.AuctionResult(max_bid=max(bids) - len(runs) + 1,
+    def auction(curve, bids, c, eval_id, **kw):
+        runs.append((len(bids), c, eval_id, kw["device"], kw["times"] is None))
+        return ccs22.AuctionResult(max_bid=max(bids) - (len(runs) == 3),
                                    deciding_bits=np.zeros(c, np.uint8),
                                    board=None)
 
     monkeypatch.setattr(ccs22, "run_auction", auction)
     args = ["ccs22", "5", "3", "--seed", "3", "--device", "cpu"]
-    assert cli.main(args) == 0 and "OK: maxBid" in capsys.readouterr().out
-    assert cli.main(args) == 1
-    assert runs[0] == runs[1] and 0 <= runs[0][0] < 5 and runs[0][1] == "cpu"
+    assert cli.main(args) == 0
+    out = capsys.readouterr().out
+    assert "OK: maxBid" in out and "Time (one evaluator)" in out
+    warm, real = runs
+    assert warm[:2] == (cli.WARMUP_N, cli.WARMUP_C) and real[:2] == (5, 3)
+    assert 0 <= real[2] < 5 and real[3] == "cpu" and not real[4]
+    assert cli.main(args + ["--fast", "--cold"]) == 1
+    assert runs[2] == real[:4] + (True,)
+    assert "Time (one" not in capsys.readouterr().out
     with pytest.raises(SystemExit) as e:
         cli.main(["seal", "2", "1", "--device", "tpu"])
     assert e.value.code == 2

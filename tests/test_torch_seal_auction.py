@@ -19,7 +19,7 @@ def test_auction_matches_jax_outcome():
     times = {}
     res = seal.run_auction(C, bids, c, verify=True,
                            generator=torch.Generator().manual_seed(5),
-                           device="cpu", times=times)
+                           device="cpu", phase_times=times)
     assert res.max_bid == int(GOLD["auction_max_bid"]) == max(bids)
     assert res.verified == bool(GOLD["auction_verified"]) is True
     np.testing.assert_array_equal(res.deciding_bits,

@@ -1,0 +1,15 @@
+"""A tampered board aborts the port's metered SEAL loop at bids [5, 3, 6], c =
+3, as tests/test_adversarial.py requires of the JAX package: the hook
+publishes the commitment phi of bidder 0, bit 0: it no longer encodes a bit
+w.r.t. its PoWFCom. The auction returns verified=False and max_bid=-1 at
+the check where the JAX loop stopped (tests/data/torch_golden_metered.npz)."""
+
+import torch
+
+from torch_metered_cases import check_tamper
+
+torch.set_num_threads(1)
+
+
+def test_tampered_phi_aborts(monkeypatch):
+    check_tamper("phi", monkeypatch)

@@ -53,7 +53,7 @@ def check_auction(eid):
     bits and max bid."""
     times = {}
     res = ccs22.run_auction(C, BIDS, C_BITS, eid, device="cpu", draws=draws(),
-                            times=times)
+                            phase_times=times)
     assert res.max_bid == int(GOLD[f"e{eid}.max_bid"]) == max(BIDS)
     np.testing.assert_array_equal(res.deciding_bits,
                                   GOLD[f"e{eid}.deciding_bits"])

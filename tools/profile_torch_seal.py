@@ -46,10 +46,10 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     bids = [(args.seed * 7919 + 104729 * i) % (1 << args.c) for i in range(args.n)]
 
-    def auction(times=None):
+    def auction(phase_times=None):
         return seal.run_auction(C, bids, args.c, verify=True,
                                 generator=torch.Generator().manual_seed(args.seed),
-                                device="cuda", times=times)
+                                device="cuda", phase_times=phase_times)
 
     auction()
     torch.cuda.synchronize()

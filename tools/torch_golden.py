@@ -1,10 +1,13 @@
 """Write the golden vectors that hold the PyTorch port to the JAX package.
 
-    JAX_PLATFORMS=cpu python tools/torch_golden.py [--only seal ccs22 ladders64]
+    JAX_PLATFORMS=cpu python tools/torch_golden.py \
+        [--only seal ccs22 ladders64 seal_metered ccs22_metered]
 
 Runs the JAX package (`privacy_auction_tpu`) on the CPU from seeded inputs
-and writes `tests/data/torch_golden_<name>.npz` for each name (all three by
-default).
+and writes `tests/data/torch_golden_<name>.npz` for each name (all five by
+default); `seal_metered` and `ccs22_metered` share
+`torch_golden_metered.npz`, and running one of them keeps the other's
+arrays there.
 
 `seal` records, for a two-bidder, two-bit SEAL board: the random words
 and the scalars they give, the commitments with their PoKDLog and PoWFCom
@@ -30,6 +33,22 @@ scalars and require the same limbs.
 `_pt_add_kernel` pass) in Pallas interpret mode at the validator's edge
 lanes, beside the JAX package's plain XLA ladders for a curve without GLV.
 `tests/test_torch_ec_*64.py` hold the port's plain versions to them.
+
+`seal_metered` records the role-metered SEAL host loop (`run_auction` with
+a `TimeTracker`) at bids [5, 3, 6], c = 3, the bids of
+tests/test_adversarial.py: the outcome and deciding bits, the
+`DataTracker` bytes per category, the `(phase, step, proof1 is None,
+proof2 is None)` calls an identity `tamper` hook sees, the checks the loop
+ran with their results, and for each of that file's five tamper cases the
+outcome and the check that aborted the auction.  `ccs22_metered` records
+the role-metered CCS22 driver at bids [2, 1, 3, 0], c = 2, evaluator 0:
+the outcome, deciding bits and bytes per category.
+`tests/test_torch_seal_tamper*.py` and `tests/test_torch_ccs22_metered.py`
+hold the port's metered drivers to them.
+
+Times on an 8-core x86 CPU: `seal_metered` and `ccs22_metered` together
+took 6 min 32 s of wall time (another process shared the CPU for part
+of it).
 
 Why offline: compiling the JAX NIZK and SEAL code on the CPU is what makes
 the repository's tier-1 test run slow (and interpreting a 64-window Pallas
@@ -66,6 +85,7 @@ from privacy_auction_tpu.curves import SECP256K1 as CURVE  # noqa: E402
 from privacy_auction_tpu.ops import ec, field as F  # noqa: E402
 from privacy_auction_tpu.ops import pallas_ec as PE  # noqa: E402
 from privacy_auction_tpu.protocols import ccs22, seal  # noqa: E402
+from privacy_auction_tpu.utils import trackers as T  # noqa: E402
 
 SEED = 20261016
 BOARD_BIDS = (2, 3)          # bits [[1, 0], [1, 1]]: Stage1 at step 0, Stage2 at step 1
@@ -76,6 +96,17 @@ CCS22_C = 2
 CCS22_EVALS = (0, 2)
 CCS22_EDGE = ((0, 0, 0), (5, 5, 5), (7, 1, 2))   # tests/test_ccs22.py:74
 CCS22_EDGE_C = 3
+METERED_BIDS = (5, 3, 6)     # tests/test_adversarial.py: step 1 runs Stage2
+METERED_C = 3
+CCS22_METERED_BIDS = (2, 1, 3, 0)
+CCS22_METERED_C = 2
+# the check names the metered drivers of both packages run
+CHECKS = ("verify_commit", "verify_round_one", "verify_round_two")
+HOOK_PHASES = ("commit", "round1", "round2")
+TAMPER_CASES = ("phi", "round1_x", "stage1_b", "stage2_b", "stage2_ch2")
+SEAL_CATEGORIES = (T.CATEGORY_BIDDER, T.CATEGORY_VERIFIER)
+CCS22_CATEGORIES = (T.CATEGORY_BIDDER, T.CATEGORY_EVALUATOR,
+                    T.CATEGORY_BIDDER_AND_EVALUATOR)
 DATA = pathlib.Path(__file__).resolve().parents[1] / "tests" / "data"
 
 
@@ -315,8 +346,111 @@ def ladders64_arrays():
     return out
 
 
+def _bump(P, *idx):
+    """P with P[idx] replaced by P[idx] + G (tests/test_adversarial.py)."""
+    g = jnp.asarray(CURVE.comb_table[0, 1])
+    return P.at[idx].set(ec.add(CURVE, P[idx], g))
+
+
+def _tamper(case):
+    """The tamper hooks of tests/test_adversarial.py, by case name."""
+    def hook(phase, step, pub):
+        if case == "phi" and phase == "commit":
+            return pub._replace(phi=_bump(pub.phi, 0, 0))
+        if case == "round1_x" and phase == "round1" and step == 0:
+            return pub._replace(X=_bump(pub.X, 1))
+        if case == "stage1_b" and phase == "round2" and step == 0:
+            return pub._replace(b=_bump(pub.b, 0))
+        if case == "stage2_b" and phase == "round2" and step == 1:
+            return pub._replace(b=_bump(pub.b, 2))
+        if case == "stage2_ch2" and phase == "round2" and step == 1:
+            p2 = pub.proof2
+            return pub._replace(proof2=p2._replace(
+                ch2=p2.ch2.at[..., 0].set(p2.ch2[..., 0] ^ 1)))
+        return pub
+    return hook
+
+
+def seal_metered_arrays():
+    """The role-metered SEAL loop: the checks it runs are recorded through
+    wrappers of the module's jitted check functions (this process only)."""
+    checks = []
+
+    def recorded(name, fn, step_arg):
+        def run(*a):
+            ok = fn(*a)
+            step = -1 if step_arg is None else int(a[step_arg])
+            checks.append((CHECKS.index(name), step, int(np.asarray(ok).all())))
+            return ok
+        return run
+
+    seal._jit_verify_commit = recorded("verify_commit", seal._jit_verify_commit,
+                                       None)
+    seal._jit_verify_round_one = recorded(
+        "verify_round_one", seal._jit_verify_round_one, 3)
+    seal._jit_verify_round_two_s1 = recorded(
+        "verify_round_two", seal._jit_verify_round_two_s1, 6)
+    seal._jit_verify_round_two_s2 = recorded(
+        "verify_round_two", seal._jit_verify_round_two_s2, 7)
+
+    bids, c = list(METERED_BIDS), METERED_C
+    key = jax.random.key(SEED + 30)
+    out = {"seal.bids": np.asarray(bids), "seal.c": np.asarray(c),
+           "seal.categories": np.asarray(SEAL_CATEGORIES),
+           "checks": np.asarray(CHECKS), "hook_phases": np.asarray(HOOK_PHASES),
+           "tamper_cases": np.asarray(TAMPER_CASES)}
+    hook_calls = []
+
+    def identity(phase, step, pub):
+        hook_calls.append((HOOK_PHASES.index(phase),
+                           -1 if step is None else step,
+                           int(getattr(pub, "proof1", None) is None),
+                           int(getattr(pub, "proof2", None) is None)))
+        return pub
+
+    data = T.DataTracker()
+    res = seal.run_auction(CURVE, key, bids, c, verify=True,
+                           trackers=T.SealCommTracker(data),
+                           tamper=identity, times=T.TimeTracker())
+    out["seal.max_bid"] = np.asarray(res.max_bid)
+    out["seal.verified"] = np.asarray(res.verified)
+    out["seal.deciding_bits"] = np.asarray(res.deciding_bits)
+    out["seal.bytes"] = np.asarray(
+        [data._acc[k] for k in SEAL_CATEGORIES], np.int64)
+    out["seal.hook_calls"] = np.asarray(hook_calls, np.int64)
+    out["seal.checks"] = np.asarray(checks, np.int64)
+    for case in TAMPER_CASES:
+        checks.clear()
+        res = seal.run_auction(CURVE, key, bids, c, verify=True,
+                               tamper=_tamper(case))
+        out[f"tamper.{case}.max_bid"] = np.asarray(res.max_bid)
+        out[f"tamper.{case}.verified"] = np.asarray(res.verified)
+        # the last check run is the one that failed
+        out[f"tamper.{case}.abort"] = np.asarray(checks[-1], np.int64)
+    return out
+
+
+def ccs22_metered_arrays():
+    bids, c = list(CCS22_METERED_BIDS), CCS22_METERED_C
+    data = T.DataTracker()
+    res = ccs22.run_auction(CURVE, jax.random.key(SEED + 40), bids, c, 0,
+                            trackers=T.Ccs22CommTracker(data),
+                            times=T.TimeTracker())
+    return {"ccs22.bids": np.asarray(bids), "ccs22.c": np.asarray(c),
+            "ccs22.eval_id": np.asarray(0),
+            "ccs22.categories": np.asarray(CCS22_CATEGORIES),
+            "ccs22.max_bid": np.asarray(res.max_bid),
+            "ccs22.deciding_bits": np.asarray(res.deciding_bits),
+            "ccs22.bytes": np.asarray([data._acc[k] for k in CCS22_CATEGORIES],
+                                      np.int64)}
+
+
 BUILDERS = {"seal": seal_arrays, "ccs22": ccs22_arrays,
-            "ladders64": ladders64_arrays}
+            "ladders64": ladders64_arrays,
+            "seal_metered": seal_metered_arrays,
+            "ccs22_metered": ccs22_metered_arrays}
+# builders that share a file; the others write torch_golden_<name>.npz
+SHARED_FILES = {"seal_metered": "metered", "ccs22_metered": "metered"}
 
 
 def save(path: pathlib.Path, out: dict):
@@ -341,9 +475,16 @@ def main():
     ap.add_argument("--out-dir", default=str(DATA))
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
+    files = {}
     for name in args.only:
-        save(pathlib.Path(args.out_dir) / f"torch_golden_{name}.npz",
-             BUILDERS[name]())
+        files.setdefault(SHARED_FILES.get(name, name), {}).update(
+            BUILDERS[name]())
+    for stem, out in files.items():
+        path = pathlib.Path(args.out_dir) / f"torch_golden_{stem}.npz"
+        if stem in SHARED_FILES.values() and path.exists():
+            # keep the arrays of the sharing builders not run this time
+            out = {**dict(np.load(path)), **out}
+        save(path, out)
 
 
 if __name__ == "__main__":
