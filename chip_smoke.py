@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives the port (`privacy_auction_tpu_torch`) and nothing of the JAX
-package, in eight phases; any failure raises and the exit code is non-zero:
+package, in these phases; any failure raises and the exit code is non-zero:
 
 1. the card's name and power limit (nvidia-smi);
 2. builds the seven EC kernels from `privacy_auction_tpu_torch/csrc/` with
@@ -15,6 +15,19 @@ package, in eight phases; any failure raises and the exit code is non-zero:
    lane, `cuda_ec.GROUPS`) has a select that loads all 16 entries in
    straight-line code with no load predicated, and prints how many selects
    it checked;
+2c. the multi-process hub auction (`runtime/party.py`) at 20x8: 20 party
+   processes on the card, spawned after this process built the native hub
+   (make) and the kernels; bids from the seed with their top bit set
+   (Stage1, then Stage2).  c is cut from 32 to 8 for the time limit: the
+   other 24 steps repeat the same shapes.  Every party must return (the
+   plaintext maximum, True), the hub's meters must equal the formula of
+   tests/test_native_auction.py exactly, every party must report `cuda`,
+   and in every party `mul_comb`, `dual_mul`, `quad_mul` and
+   `base_mul_add_glv` must rise and no other kernel run (counts and
+   devices come back in files beside the hub's socket, not through the
+   hub); it prints the wall time, the slowest party's time, the meters
+   and the parties' launches by kernel and lane count, and every lane
+   count the parties launched joins phase 3's parity list;
 3. the full kernel validator (the 64-window ladders, `mul_base`, the GLV
    dispatch and `pt_add`, edge lanes against the host oracle) with the
    launch counts set to 0 before it and read after it: every kernel must
@@ -23,13 +36,16 @@ package, in eight phases; any failure raises and the exit code is non-zero:
    host oracle: `pt_add` at 4096 lanes, and the seven rows of the six group
    kernels (`dual_mul` at 33 and at 64 windows) at 1, 15, 17, 300 and 2053
    lanes and at the lane counts the auctions (fused and metered), the
-   validator and the ladder bench launch them at, each lane count once, each at both of its threads
-   a lane (8 and 4; `mul_comb` 8 and 2);
-4. verified SEAL auctions at 20x32 and 128x32 bidders x bits from a seed
-   (the fused driver): each must verify and find the plaintext maximum,
+   hub's parties (phase 2c), the validator and the ladder bench launch
+   them at, each lane count once, each at both of its threads a lane (8
+   and 4; `mul_comb` 8 and 2);
+4. verified SEAL auctions at 20x32 and 128x8 bidders x bits from a seed
+   (the fused driver; the second cut from 128x32 to 128x8 to leave time
+   for phases 2c and 6b): each must verify and find the plaintext maximum,
    and each of its four kernels' launch counts must rise during each
    auction (printed, with the launches by kernel and lane count);
-4b. the role-metered SEAL auction at 20x32 through the CLI's run function
+4b. the role-metered SEAL auction at 20x8 (cut from 20x32 for the same
+   reason; a step's shapes do not depend on c) through the CLI's run function
    (`cli.run_seal`, no warm-up: the build is loaded): it must verify and
    find the plaintext maximum, and the four kernels must rise; it prints
    the CLI's per-role report and the launches by kernel and lane count;
@@ -51,14 +67,21 @@ package, in eight phases; any failure raises and the exit code is non-zero:
    JAX package's golden vectors (deciding bits, bytes, the hook's calls,
    the checks run), each tampered auction must return verified=False and
    max_bid=-1 at the check where the JAX loop stopped;
+6b. NIST P-256 on the card: a fused verified SEAL auction and a fused
+   CCS22 auction at 20x4 (c cut from 32 to 4 for the time limit) from the
+   seed; each must find the plaintext maximum (SEAL verified), and no CUDA
+   kernel may launch (P-256 runs the generic plain path); it prints the
+   phase times;
 7. tools/bench_ladder_torch.py at 8192 lanes (64-window ladders beside
    their GLV forms);
-8. per kernel row, at a shape the 128x32 SEAL auction gives it (8192 lanes
+8. per kernel row, at a shape the 128x8 SEAL auction gives it (2048 lanes
    for the kernels that only the validator reaches), and the group kernels
    at the other auctions' shapes too, the metered drivers' included
    (`mul_comb` at 20-20480 lanes, `dual_mul` at 20, 40, 1280 and 4096,
    `quad_mul` at 20, 160, 320, 2048 and 3840, `base_mul_add_glv` at 40
-   and 1280; `scalar_mul` and `base_mul_add` at the validator's 8): the kernel's time (CUDA events), the plain
+   and 1280; `scalar_mul` and `base_mul_add` at the validator's 8; the
+   hub parties' `mul_comb` at 4 and 40, `dual_mul` at 2, `quad_mul` at 8,
+   16, 32 and 960): the kernel's time (CUDA events), the plain
    version's time, both outputs compared exactly (`max_abs_err` must be 0),
    the bound from the 32-bit integer multiplies or the bytes it needs, and
    ptxas' registers, stack and spills with the threads a lane, threads a
@@ -81,7 +104,10 @@ import time
 
 DEVICE = "cuda"
 SEED = 20261016
-AUCTIONS = ((20, 32), (128, 32))
+AUCTIONS = ((20, 32), (128, 8))
+HUB = (20, 8)            # party processes x bits; c cut from 32 for time
+HUB_KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv")
+P256_AUCTION = (20, 4)   # bidders x bits; c cut from 32 for time
 CCS22_AUCTIONS = ((20, 32), (64, 32))
 BENCH_LANES = 8192
 CHECK_LANES = 4096
@@ -114,37 +140,196 @@ GROUP_ROWS = ROWS[:-1]
 SELECT_VARIANTS = 12    # the six group kernels, each at both of its G
 RAGGED_LANES = (1, 15, 17, 300, 2053)   # part of a block, ragged blocks
 # the lane counts the auctions launch each group row at: mul_comb at SEAL
-# 20x32 (round one 4nc, commit 5nc) and 128x32, and at CCS22 20x32 and
-# 64x32 (n, nc, 4nc); dual_mul at 2nc of SEAL 20x32 and 128x32 and of CCS22
-# 64x32; quad_mul's proof passes (8n, 16n) and the commit's (4nc, 6nc) at
-# SEAL 20x32 and 128x32, and CCS22's OT masks (nc) at 20x32 and 64x32;
-# base_mul_add_glv's round-one check (2cn) at 20x32 and 128x32; the
-# 64-window rows at the validator's 8 and the ladder bench's 8192.  The metered drivers at 20x32 add: SEAL's round one a step
-# (mul_comb 4n = 80), its check (base_mul_add_glv 2n = 40) and its
-# ciphertexts (dual_mul 2n = 40); CCS22's BES encoding and OT recovery
-# (dual_mul n = 20) and OT reply (quad_mul n = 20)
+# 20x32 (round one 4nc, commit 5nc) and 128x8, and at CCS22 20x32 and
+# 64x32 (n, nc, 4nc); dual_mul at 2nc of SEAL 20x32 and 128x8 and of CCS22
+# 20x32 and 64x32; quad_mul's proof passes (8n, 16n) and the commit's (4nc,
+# 6nc) at SEAL 20x32 and 128x8, and CCS22's OT masks (nc) at 20x32 and
+# 64x32; base_mul_add_glv's round-one check (2cn) at 20x32 and 128x8; the
+# 64-window rows at the validator's 8 and the ladder bench's 8192.  The
+# metered drivers add: SEAL 20x8's commit and its check (mul_comb 5nc =
+# 800, quad_mul 4nc = 640 and 6nc = 960), round one a step (mul_comb 4n =
+# 80), its check (base_mul_add_glv 2n = 40) and its ciphertexts (dual_mul
+# 2n = 40); CCS22 20x32's BES encoding and OT recovery (dual_mul n = 20)
+# and OT reply (quad_mul n = 20)
 AUCTION_LANES = {
-    "mul_comb": (20, 64, 80, 640, 2048, 2560, 3200, 8192, 16384, 20480),
-    "dual_mul": (20, 40, 1280, 4096, 8192), "dual_mul_64": (8, 8192),
-    "quad_mul": (20, 160, 320, 640, 1024, 1280, 2048, 2560, 3840, 16384,
-                 24576),
-    "base_mul_add_glv": (40, 1280, 8192),
+    "mul_comb": (20, 64, 80, 640, 800, 2048, 2560, 3200, 4096, 5120, 8192),
+    "dual_mul": (20, 40, 1280, 2048, 4096), "dual_mul_64": (8, 8192),
+    "quad_mul": (20, 160, 320, 640, 960, 1024, 2048, 2560, 3840, 4096, 6144),
+    "base_mul_add_glv": (40, 1280, 2048),
     "scalar_mul": (8, 8192), "base_mul_add": (8, 8192),
 }
-METERED = (20, 32)       # the metered drivers' auctions (SEAL and CCS22)
-# the group rows' timed shapes beside their rows (the 128x32 auction's):
-# the other auctions' shapes, the metered drivers' included
+SEAL_METERED = (20, 8)   # the role-metered SEAL auction (phase 4b)
+METERED = (20, 32)       # the role-metered CCS22 auction (phase 5b)
+# the group rows' timed shapes beside their rows (the 128x8 auction's):
+# the other auctions' shapes, the metered drivers' and the hub's included
 GROUP_TIMED = (tuple(("mul_comb", n) for n in AUCTION_LANES["mul_comb"]
-                     if n != 16384)
+                     if n != 4 * AUCTIONS[-1][0] * AUCTIONS[-1][1])
                + (("dual_mul", 20), ("dual_mul", 40), ("dual_mul", 1280),
                   ("dual_mul", 4096), ("quad_mul", 20), ("quad_mul", 160),
                   ("quad_mul", 320), ("quad_mul", 2048), ("quad_mul", 3840),
                   ("base_mul_add_glv", 40), ("base_mul_add_glv", 1280),
-                  ("scalar_mul", 8), ("base_mul_add", 8)))
+                  ("scalar_mul", 8), ("base_mul_add", 8))
+               # the hub parties' own lane counts at 20x8 (their one-lane
+               # messages and the verifiers' commit check, 6nc)
+               + (("mul_comb", 4), ("mul_comb", 40), ("dual_mul", 2),
+                  ("quad_mul", 8), ("quad_mul", 16), ("quad_mul", 32),
+                  ("quad_mul", 960)))
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+class MemorySampler:
+    """The card's used memory (nvidia-smi, MiB): once now (`base`), then every
+    `period` seconds in a thread until `stop()`, keeping the largest."""
+
+    period = 1.0
+
+    def __init__(self):
+        import threading
+
+        self.base = self.peak = self._read()
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _read() -> int:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, check=True)
+        return int(out.stdout.split()[0])
+
+    def _run(self):
+        while not self._done.wait(self.period):
+            self.peak = max(self.peak, self._read())
+
+    def stop(self):
+        self._done.set()
+        self._thread.join()
+
+
+def hub_phase(n: int, c: int, device, memory=None):
+    """Phase 2c: the hub auction of n party processes at c bits on `device`,
+    checked; returns the parties' launches by kernel and by (kernel, lanes),
+    summed.  `memory`: a MemorySampler class (None: no memory reading)."""
+    from privacy_auction_tpu_torch.ops import cuda_ec
+    from privacy_auction_tpu_torch.runtime import party
+    from privacy_auction_tpu_torch.utils import trackers as T
+
+    hub_rng = random.Random(SEED + 1)
+    bids = [(1 << (c - 1)) | hub_rng.randrange(1 << (c - 1)) for _ in range(n)]
+    t0 = time.perf_counter()
+    party.warm_build(device)            # make -C native; the kernels are built
+    log(f"[hub] native hub and kernels built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reports = []
+    cuda_ec.reset_launches()
+    mem = memory() if memory is not None else None
+    t0 = time.perf_counter()
+    try:
+        results, meters = party.run_hub_auction(n, c, bids, seed=SEED,
+                                                device=device, reports=reports,
+                                                warm=False)
+    finally:
+        if mem is not None:
+            mem.stop()
+    hub_wall = time.perf_counter() - t0
+    want = max(bids)
+    if results != [(want, True)] * n:
+        raise AssertionError(f"hub {n}x{c}: results {results}, want "
+                             f"({want}, True) from every party")
+    deciding = [(want >> (c - 1 - s)) & 1 for s in range(c)]
+    per_party, stage2 = c * T.SEAL_COMMIT_PER_BIT, False
+    for s in range(c):
+        per_party += T.SEAL_ROUND1 + (T.SEAL_ROUND2_S2 if stage2
+                                      else T.SEAL_ROUND2_S1)
+        stage2 = stage2 or bool(deciding[s])
+    want_meters = {"bidder": n * per_party, "verifier": n * n * per_party,
+                   "result": 2 * n * party.RESULT_BYTES}
+    want_meters["total"] = sum(want_meters.values())
+    if meters != want_meters:
+        raise AssertionError(f"hub {n}x{c}: meters {meters} != {want_meters}")
+    devices = sorted({r["device"] for r in reports})
+    if len(reports) != n or any(not r["device"].startswith(str(device))
+                                for r in reports):
+        raise AssertionError(f"hub {n}x{c}: {len(reports)} reports, devices "
+                             f"{devices}")
+    for r in reports:
+        idle = [k for k in HUB_KERNELS if r["launches"][k] == 0]
+        stray = [k for k, v in r["launches"].items() if v and k not in HUB_KERNELS]
+        if idle or stray:
+            raise AssertionError(f"hub {n}x{c}: party {r['pid']}: kernels "
+                                 f"{idle} never launched, {stray} launched")
+    if any(cuda_ec.launches.values()):
+        raise AssertionError("hub: the driver process launched kernels")
+    hub_launches = {k: sum(r["launches"][k] for r in reports)
+                    for k in cuda_ec.launches}
+    hub_lanes: dict = {}
+    for r in reports:
+        for key, v in r["launch_lanes"].items():
+            hub_lanes[key] = hub_lanes.get(key, 0) + v
+    slowest = max(reports, key=lambda r: r["seconds"])
+    log(f"[hub {n}x{c}] {n} party processes on {devices}, bids {bids}: every "
+        f"party verified and found max_bid={want}; wall {hub_wall:.3f} s, "
+        f"slowest party {slowest['seconds']:.3f} s (party {slowest['pid']})")
+    if mem is not None:
+        log(f"[hub {n}x{c}] device memory used (nvidia-smi, every "
+            f"{mem.period} s): {mem.base} MiB before, peak {mem.peak} MiB "
+            f"during the auction, {(mem.peak - mem.base) / n:.0f} MiB a party")
+    log(f"[hub {n}x{c}] meters {json.dumps(meters)} = the formula (bidder n x "
+        f"{per_party}, verifier n^2 x {per_party}, result 2n x 9)")
+    log(f"[hub {n}x{c}] launches, all parties {json.dumps(hub_launches)}")
+    log(f"[hub {n}x{c}] launches by kernel@lanes, all parties "
+        f"{json.dumps({f'{k}@{l}': v for (k, l), v in sorted(hub_lanes.items())})}")
+    return hub_launches, hub_lanes
+
+
+def p256_phase(n: int, c: int, device):
+    """Phase 6b: fused SEAL (verified) and CCS22 auctions on P-256 at n x c
+    on `device`; no kernel may launch."""
+    import torch
+
+    from privacy_auction_tpu_torch.curves import get_curve
+    from privacy_auction_tpu_torch.ops import cuda_ec
+    from privacy_auction_tpu_torch.protocols import ccs22, seal
+
+    P256 = get_curve("P-256")
+    p_rng = random.Random(SEED + 256)
+    cuda_ec.reset_launches()
+    bids = [(1 << (c - 1)) | p_rng.randrange(1 << (c - 1)) for _ in range(n)]
+    times = {}
+    t0 = time.perf_counter()
+    res = seal.run_auction(P256, bids, c, verify=True,
+                           generator=torch.Generator().manual_seed(SEED + 256),
+                           device=device, phase_times=times)
+    wall = time.perf_counter() - t0
+    if not res.verified or res.max_bid != max(bids):
+        raise AssertionError(f"P-256 SEAL {n}x{c}: verified={res.verified} "
+                             f"max_bid={res.max_bid} != {max(bids)}")
+    log(f"[p256 seal {n}x{c}] verified, max_bid={res.max_bid}, wall {wall:.3f} "
+        "s; phases " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()))
+    bids = [p_rng.randrange(1 << c) for _ in range(n)]
+    eval_id = p_rng.randrange(n)
+    t0 = time.perf_counter()
+    ccs22.pp_or_make(P256, device)
+    crs = time.perf_counter() - t0
+    times = {}
+    t0 = time.perf_counter()
+    res = ccs22.run_auction(P256, bids, c, eval_id,
+                            generator=torch.Generator().manual_seed(SEED + 257),
+                            device=device, phase_times=times)
+    wall = time.perf_counter() - t0
+    if res.max_bid != max(bids):
+        raise AssertionError(f"P-256 CCS22 {n}x{c}: max_bid={res.max_bid} != "
+                             f"{max(bids)}")
+    log(f"[p256 ccs22 {n}x{c}] evaluator {eval_id}, max_bid={res.max_bid}, wall "
+        f"{wall:.3f} s (CRS {crs:.3f} s before it); phases "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()))
+    if any(cuda_ec.launches.values()):
+        raise AssertionError(f"P-256: kernels launched {json.dumps(cuda_ec.launches)}")
+    log("[p256] both auctions ran the generic plain path: no kernel launched")
 
 
 def main() -> int:
@@ -205,6 +390,9 @@ def main() -> int:
     log(f"[sass] {len(selects)} selects checked, one in each of "
         f"{len(variants)} kernel variants: all constant-time")
 
+    # ---- 2c. the hub auction: one party process a bidder, all on the card --------
+    hub_launches, hub_lanes = hub_phase(*HUB, DEVICE, MemorySampler)
+
     # ---- 3. validator (this slice's path) and parity ---------------------------
     cuda_ec.reset_launches()
     validate_kernels(C, lanes=8, seed=SEED, device=dev)
@@ -239,28 +427,28 @@ def main() -> int:
         if name == "mul_comb":
             ks, k = scalars(lanes)
             table = C.tensor("comb_table", dev)
-            return ((lambda shape=None: cuda_ec.mul_comb(table, k, shape)),
+            return ((lambda shape=None: cuda_ec.mul_comb(C, table, k, shape)),
                     (lambda: ec.mul_comb_plain(C, table, k)),
                     lambda i: host.mul(ks[i], host.g))
         if name == "pt_add":
             (a, P), (b, Q) = points(lanes), points(lanes)
-            return ((lambda: cuda_ec.pt_add(P, Q)), (lambda: ec.add(C, P, Q)),
+            return ((lambda: cuda_ec.pt_add(C, P, Q)), (lambda: ec.add(C, P, Q)),
                     lambda i: host.mul(a[i] + b[i], host.g))
         if name in ("scalar_mul", "base_mul_add", "dual_mul_64"):
             (a, P), (b, Q) = points(lanes), points(lanes)
             (ss, s), (ts, t) = scalars(lanes), scalars(lanes)
             if name == "scalar_mul":
-                return ((lambda shape=None: cuda_ec.scalar_mul(P, s,
+                return ((lambda shape=None: cuda_ec.scalar_mul(C, P, s,
                                                                shape=shape)),
                         (lambda: ec.scalar_mul_windows_plain(C, P, s)),
                         lambda i: host.mul(a[i] * ss[i], host.g))
             if name == "base_mul_add":
                 g0b = C.tensor("g0_table", dev)
-                return ((lambda shape=None: cuda_ec.base_mul_add(s, P, t, g0b,
+                return ((lambda shape=None: cuda_ec.base_mul_add(C, s, P, t, g0b,
                                                                  shape)),
                         (lambda: ec.base_mul_add_plain(C, s, P, t)),
                         lambda i: host.mul(ss[i] + a[i] * ts[i], host.g))
-            return ((lambda shape=None: cuda_ec.dual_mul(P, s, Q, t,
+            return ((lambda shape=None: cuda_ec.dual_mul(C, P, s, Q, t,
                                                          COMB_WINDOWS, shape)),
                     (lambda: ec.dual_mul_windows_plain(C, P, s, Q, t,
                                                        COMB_WINDOWS)),
@@ -269,13 +457,13 @@ def main() -> int:
         srcs = [points(lanes) + scalars(lanes, 132) for _ in range(nsrc)]
         args = [t for a, P, s, k in srcs for t in (P, k)]
         if name == "dual_mul":
-            return ((lambda shape=None: cuda_ec.dual_mul(*args, GLV_WINDOWS,
+            return ((lambda shape=None: cuda_ec.dual_mul(C, *args, GLV_WINDOWS,
                                                          shape)),
                     (lambda: ec.dual_mul_windows_plain(C, *args, GLV_WINDOWS)),
                     lambda i: host.mul(sum(a[i] * s[i] for a, _, s, _ in srcs),
                                        host.g))
         if name == "quad_mul":
-            return ((lambda shape=None: cuda_ec.quad_mul(*args, GLV_WINDOWS,
+            return ((lambda shape=None: cuda_ec.quad_mul(C, *args, GLV_WINDOWS,
                                                          shape)),
                     (lambda: ec.quad_mul_windows_plain(C, *args, GLV_WINDOWS)),
                     lambda i: host.mul(sum(a[i] * s[i] for a, _, s, _ in srcs),
@@ -291,14 +479,15 @@ def main() -> int:
                  + sum(a[i] * s[i] for a, _, s, _ in srcs))
             return host.mul(e % host.n, host.g)
         return ((lambda shape=None: cuda_ec.base_mul_add_glv(
-                    *args, s1, s2, flags, g0, GLV_WINDOWS, shape)),
+                    C, *args, s1, s2, flags, g0, GLV_WINDOWS, shape)),
                 (lambda: ec.base_mul_add_glv_plain(C, *args, s1, s2, flags,
                                                    GLV_WINDOWS)),
                 want)
 
     parity = [("pt_add", CHECK_LANES)]
     parity += [(name, lanes) for name in GROUP_ROWS
-               for lanes in sorted(set(RAGGED_LANES + AUCTION_LANES[name]))]
+               for lanes in sorted(set(RAGGED_LANES + AUCTION_LANES[name])
+                                   | {n for k, n in hub_lanes if k == name})]
     for name, lanes in parity:
         run_k, run_p, want = kernel_inputs(name, lanes)
         kernel = name.removesuffix("_64")
@@ -353,7 +542,7 @@ def main() -> int:
             f"{json.dumps(by_lanes(cuda_ec.launch_lanes))}")
 
     # ---- 4b. the role-metered SEAL auction, through the CLI ----------------------
-    n, c = METERED
+    n, c = SEAL_METERED
     cuda_ec.reset_launches()
     t0 = time.perf_counter()
     rc = cli.run_seal(n, c, SEED, verify=True, device=DEVICE, warmup=False)
@@ -524,6 +713,9 @@ def main() -> int:
             f"{M.CHECKS[name]} (step {step}), as the JAX package "
             f"({time.perf_counter() - t0:.3f} s)")
 
+    # ---- 6b. P-256 on the generic plain path -----------------------------------------
+    p256_phase(*P256_AUCTION, dev)
+
     # ---- 7. the ladder bench ------------------------------------------------------
     spec = importlib.util.spec_from_file_location(
         "bench_ladder_torch",
@@ -533,7 +725,7 @@ def main() -> int:
     log("[bench] tools/bench_ladder_torch.py --lanes "
         f"{BENCH_LANES}: {json.dumps(bench_mod.bench([BENCH_LANES], device=dev)[0])}")
 
-    # ---- 8. kernel times at the 128x32 auction's shapes -----------------------------
+    # ---- 8. kernel times at the 128x8 auction's shapes ------------------------------
     n, c = AUCTIONS[-1]
     shapes = {
         "mul_comb": 4 * c * n,       # round-1 keys and nonce commitments
@@ -598,15 +790,19 @@ def main() -> int:
                          else auction_launches[AUCTIONS[0]][name]
                          if name in SEAL_KERNELS else validator_launches[name]),
             "launches_path": path,
-            "launches_seal_128x32": (
+            f"launches_seal_{AUCTIONS[-1][0]}x{AUCTIONS[-1][1]}": (
                 auction_lanes[AUCTIONS[-1]].get((name, lanes), 0) if extra
                 else auction_launches[AUCTIONS[-1]][name]),
             **{f"launches_ccs22_{a}x{b}": (
                 ccs22_lanes[(a, b)].get((name, lanes), 0) if extra
                 else ccs22_launches[(a, b)][name]) for a, b in CCS22_AUCTIONS},
-            **{f"launches_{p}_metered_{METERED[0]}x{METERED[1]}": (
+            **{f"launches_{p}_metered_{a}x{b}": (
                 metered_lanes[p].get((name, lanes), 0) if extra
-                else metered_launches[p][name]) for p in ("seal", "ccs22")},
+                else metered_launches[p][name])
+               for p, (a, b) in (("seal", SEAL_METERED), ("ccs22", METERED))},
+            f"launches_hub_{HUB[0]}x{HUB[1]}": (
+                hub_lanes.get((name, lanes), 0) if extra
+                else hub_launches[name]),
             "launches_validator": validator_launches[name],
             "lanes": lanes, "windows": windows.get(name), "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,

@@ -1,9 +1,12 @@
-"""Curve registry of the PyTorch port: secp256k1 only.
+"""Curve registry of the PyTorch port: secp256k1 and NIST P-256.
 
 Counterpart of `privacy_auction_tpu/curves.py`.  Curve constants, the
 fixed-base comb table of the generator and the GLV parameters all come from
 exact host integers, so they equal the JAX package's arrays limb for limb.
-Other curves (P-256: a != 0, Barrett modulus) are not ported yet.
+secp256k1 (a = 0, fold-reduced fields, GLV) is the curve the CUDA kernels
+are written for; P-256 (a != 0, Barrett-reduced fields, no GLV) runs the
+generic plain path on any device, as it runs the JAX package's pure-XLA
+path.  `get_curve("P-256")` (or "p256", the JAX package's name) gives it.
 """
 
 from __future__ import annotations
@@ -27,19 +30,40 @@ GLV_WINDOWS = 33          # 4-bit windows covering |k_i| < 2**132
 
 @dataclass(frozen=True)
 class Curve:
-    """A short-Weierstrass a = 0 curve prepared for the port's kernels."""
+    """A short-Weierstrass curve y^2 = x^3 + a*x + b prepared for the port."""
 
     name: str
     host: HostCurve = dc_field(repr=False)
     fp: F.FieldSpec = dc_field(repr=False)   # base field GF(p)
     fn: F.FieldSpec = dc_field(repr=False)   # scalar field GF(n)
-    b3: int = 0                              # 3*b (a=0 formulas)
+    b3: int = 0                              # 3*b (a = 0 formulas), else 0
 
     def __hash__(self):
         return hash(self.name)
 
     def __eq__(self, other):
         return isinstance(other, Curve) and self.name == other.name
+
+    @property
+    def a_is_zero(self) -> bool:
+        """a == 0 selects the RCB16 Alg 7/9 formulas (and, with a fold
+        modulus, the CUDA kernels); otherwise the generic Alg 1/3 run."""
+        return self.host.a == 0
+
+    @functools.cached_property
+    def a_limbs(self) -> np.ndarray:
+        """(16,) a mod p as a field element (generic formulas)."""
+        return F.int_to_limbs(self.host.a % self.host.p)
+
+    @functools.cached_property
+    def b_limbs(self) -> np.ndarray:
+        return F.int_to_limbs(self.host.b % self.host.p)
+
+    @functools.cached_property
+    def b3_limbs(self) -> np.ndarray:
+        """(16,) 3*b mod p as a full field element (generic formulas; P-256's
+        b is full-width, so the small-constant form cannot apply)."""
+        return F.int_to_limbs(3 * self.host.b % self.host.p)
 
     @functools.cached_property
     def generator_affine(self) -> np.ndarray:
@@ -209,17 +233,28 @@ def encode_host_point(P) -> np.ndarray:
     return np.stack([F.int_to_limbs(x), F.int_to_limbs(y), F.int_to_limbs(1)])
 
 
-@functools.lru_cache(maxsize=None)
+# other names of the registry's curves
+ALIASES = {"P-256": "p256", "secp256r1": "p256"}
+
+
 def get_curve(name: str = "secp256k1") -> Curve:
-    if name != "secp256k1":
-        raise NotImplementedError(f"curve {name!r} is not ported yet")
+    """The curve of that name: "secp256k1", or P-256 as "P-256", "p256"
+    or "secp256r1" (one Curve object, named "p256" as in the JAX package)."""
+    return _make_curve(ALIASES.get(name, name))
+
+
+@functools.lru_cache(maxsize=None)
+def _make_curve(name: str) -> Curve:
+    if name not in HOST_CURVES:
+        raise ValueError(f"unknown curve {name!r}; known: "
+                         f"{sorted(HOST_CURVES) + sorted(ALIASES)}")
     host = HOST_CURVES[name]
     return Curve(
         name=name,
         host=host,
         fp=F.make_spec(f"{name}_p", host.p),
         fn=F.make_spec(f"{name}_n", host.n),
-        b3=3 * host.b,
+        b3=3 * host.b if host.a == 0 else 0,
     )
 
 

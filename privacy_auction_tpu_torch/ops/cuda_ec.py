@@ -6,7 +6,11 @@ the stream go as `c_void_p`, counts as `c_int`.  Each wrapper checks
 device, dtype and shapes, makes its inputs contiguous, allocates the output
 with `torch.empty`, launches on the current stream, raises if the launcher
 returns a CUDA error, and adds one to its launch count.  There is no
-fallback: a CPU tensor, a missing `nvcc` or a failed build raises.
+fallback: a CPU tensor, a missing `nvcc` or a failed build raises.  The
+kernels hard-code secp256k1's p and its fold constant (`csrc/ec_device.cuh`),
+so each wrapper takes the curve first and refuses any other (`CURVE`);
+`ec.py` routes every other curve (P-256) to the plain path before it gets
+here.
 
 | wrapper            | kernel                     | TPU kernel it replaces                  |
 | mul_comb           | mul_comb_kernel<G>         | _mul_base_kernel (pallas_ec.py:538)     |
@@ -46,6 +50,8 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cuda_ec"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the one curve the kernels are written for
+CURVE = "secp256k1"
 KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv",
            "scalar_mul", "base_mul_add", "pt_add")
 # Launch counts by wrapper; `dual_mul` counts its 64-window launches (full
@@ -320,6 +326,13 @@ def select_sass(b: Build) -> list[dict]:
 # argument checks and layout
 # --------------------------------------------------------------------------
 
+def _check_curve(name: str, curve):
+    if curve.name != CURVE:
+        raise ValueError(f"{name}: the kernel is written for {CURVE}'s field, "
+                         f"not {curve.name}'s; ec.py runs that curve's plain "
+                         "path")
+
+
 def _lanes(name: str, tensors, tails):
     """Check that every tensor is int64 on one CUDA device with the given
     trailing shape and one common batch shape; return them flattened to
@@ -392,8 +405,10 @@ def _check(name: str, err: int):
 # `shape` of the group kernels' wrappers: the launch shape to take in place
 # of launch_shape's, to time or check one choice of G (tools, card tests).
 
-def mul_comb(table: torch.Tensor, k: torch.Tensor, shape=None) -> torch.Tensor:
+def mul_comb(curve, table: torch.Tensor, k: torch.Tensor,
+             shape=None) -> torch.Tensor:
     """k*B for a (64, 16, 3, 16) comb table of B; k (..., 16)."""
+    _check_curve("mul_comb", curve)
     (kf,), batch = _lanes("mul_comb", [k], [(16,)])
     if tuple(table.shape) != (COMB_WINDOWS, COMB_SIZE, 3, 16):
         raise ValueError(f"mul_comb: bad comb table shape {tuple(table.shape)}")
@@ -415,8 +430,10 @@ def _check_windows(name: str, windows: int):
         raise ValueError(f"{name}: windows={windows} out of range")
 
 
-def scalar_mul(P, k, windows: int = COMB_WINDOWS, shape=None) -> torch.Tensor:
+def scalar_mul(curve, P, k, windows: int = COMB_WINDOWS,
+               shape=None) -> torch.Tensor:
     """k*P over the low `windows` 4-bit windows (all 64 by default)."""
+    _check_curve("scalar_mul", curve)
     (p, s), batch = _lanes("scalar_mul", [P, k], [(3, 16), (16,)])
     _check_windows("scalar_mul", windows)
     n = p.shape[0]
@@ -429,8 +446,9 @@ def scalar_mul(P, k, windows: int = COMB_WINDOWS, shape=None) -> torch.Tensor:
     return out.reshape(batch + (3, 16))
 
 
-def dual_mul(P1, k1, P2, k2, windows: int, shape=None) -> torch.Tensor:
+def dual_mul(curve, P1, k1, P2, k2, windows: int, shape=None) -> torch.Tensor:
     """k1*P1 + k2*P2 over the low `windows` 4-bit windows."""
+    _check_curve("dual_mul", curve)
     (p1, s1, p2, s2), batch = _lanes(
         "dual_mul", [P1, k1, P2, k2], [(3, 16), (16,), (3, 16), (16,)])
     _check_windows("dual_mul", windows)
@@ -444,9 +462,10 @@ def dual_mul(P1, k1, P2, k2, windows: int, shape=None) -> torch.Tensor:
     return out.reshape(batch + (3, 16))
 
 
-def quad_mul(P1, k1, P2, k2, P3, k3, P4, k4, windows: int,
+def quad_mul(curve, P1, k1, P2, k2, P3, k3, P4, k4, windows: int,
              shape=None) -> torch.Tensor:
     """sum k_i*P_i over the low `windows` 4-bit windows."""
+    _check_curve("quad_mul", curve)
     args, batch = _lanes("quad_mul", [P1, k1, P2, k2, P3, k3, P4, k4],
                          [(3, 16), (16,)] * 4)
     _check_windows("quad_mul", windows)
@@ -460,10 +479,11 @@ def quad_mul(P1, k1, P2, k2, P3, k3, P4, k4, windows: int,
     return out.reshape(batch + (3, 16))
 
 
-def base_mul_add_glv(P1, t1, P2, t2, s1, s2, sflags, g0_tables,
+def base_mul_add_glv(curve, P1, t1, P2, t2, s1, s2, sflags, g0_tables,
                      windows: int, shape=None) -> torch.Tensor:
     """g^s * P^t from the GLV split (see ec.base_mul_add_glv_plain);
     g0_tables (2, 16, 3, 16): window-0 entries of G and phi(G)."""
+    _check_curve("base_mul_add_glv", curve)
     args, batch = _lanes(
         "base_mul_add_glv", [P1, t1, P2, t2, s1, s2, sflags],
         [(3, 16), (16,), (3, 16), (16,), (16,), (16,), (2,)])
@@ -483,9 +503,10 @@ def base_mul_add_glv(P1, t1, P2, t2, s1, s2, sflags, g0_tables,
     return out.reshape(batch + (3, 16))
 
 
-def base_mul_add(s, P, t, g0_table, shape=None) -> torch.Tensor:
+def base_mul_add(curve, s, P, t, g0_table, shape=None) -> torch.Tensor:
     """g^s * P^t without GLV over the 64 4-bit windows of the full scalars;
     g0_table (16, 3, 16): the window-0 comb entries d*G (Z = 1)."""
+    _check_curve("base_mul_add", curve)
     (p, tt, ss), batch = _lanes("base_mul_add", [P, t, s],
                                 [(3, 16), (16,), (16,)])
     if tuple(g0_table.shape) != (COMB_SIZE, 3, 16):
@@ -502,8 +523,9 @@ def base_mul_add(s, P, t, g0_table, shape=None) -> torch.Tensor:
     return out.reshape(batch + (3, 16))
 
 
-def pt_add(P, Q) -> torch.Tensor:
+def pt_add(curve, P, Q) -> torch.Tensor:
     """One complete projective add P + Q per lane."""
+    _check_curve("pt_add", curve)
     (p, q), batch = _lanes("pt_add", [P, Q], [(3, 16), (3, 16)])
     n = p.shape[0]
     out = _out(n, p)

@@ -1,10 +1,11 @@
-"""Batched elliptic-curve point operations (secp256k1, a = 0) in PyTorch.
+"""Batched elliptic-curve point operations in PyTorch.
 
 Counterpart of `privacy_auction_tpu/ops/ec.py`.  Points are projective
 (X:Y:Z) limb tensors of shape ``(..., 3, 16)``; Z == 0 encodes the point at
 infinity (canonically (0:1:0)).  The group law is the complete
-Renes-Costello-Batina formulas for a = 0 (RCB16 Algorithms 7 and 9): one
-branchless code path for P+Q, P+P, P+(-P) and the identity.
+Renes-Costello-Batina formulas: for a = 0 (secp256k1) Algorithms 7 and 9,
+for any other a (P-256) Algorithms 1 and 3; one branchless code path for
+P+Q, P+P, P+(-P) and the identity.
 
 Each of the seven EC kernels -- the four ladders of the protocols' path
 and, for a curve without GLV (reached today through the kernel validator),
@@ -18,8 +19,11 @@ the 64-window ladders and the single add -- has two versions here:
 
 Both run the same sequence of formulas, and every field value is
 canonical, so they agree bit for bit in projective coordinates.  The
-dispatch looks only at the device of the tensor it is given: a CPU tensor
-takes the plain version, any other device launches the kernel or raises.
+dispatch is the JAX package's `_pallas_ok` with the device in place of the
+platform: a tensor of a curve the kernels are written for (a = 0 and a
+fold-friendly p: secp256k1) launches the kernel on any device but the
+CPU, and raises where it cannot run; a CPU tensor, and a tensor of any
+other curve (P-256) on any device, takes the plain version.
 """
 
 from __future__ import annotations
@@ -86,12 +90,90 @@ def eq(curve: Curve, P, Q):
 # group law (complete formulas, a = 0)
 # --------------------------------------------------------------------------
 
-def add(curve: Curve, P, Q):
-    """Complete projective addition (RCB16 Algorithm 7, a=0).
+def _consts_a_b3(curve: Curve, like):
+    """a and 3b as full field elements broadcast to `like` (..., 16)."""
+    return (F.const(curve.a_limbs, like.device, like.shape[:-1]),
+            F.const(curve.b3_limbs, like.device, like.shape[:-1]))
 
-    12 field muls + 3 small-constant muls, grouped into two batched mul
-    calls of six, as the JAX package does.
+
+def _add_generic(curve: Curve, P, Q):
+    """Complete projective addition for any a (RCB16 Algorithm 1): 12 field
+    muls, 3 a-muls and 2 b3-muls, in the JAX package's four batched mul
+    calls (a and 3b are full field constants: P-256's are full-width)."""
+    fp = curve.fp
+    P, Q = torch.broadcast_tensors(P, Q)
+    X1, Y1, Z1 = P[..., 0, :], P[..., 1, :], P[..., 2, :]
+    X2, Y2, Z2 = Q[..., 0, :], Q[..., 1, :], Q[..., 2, :]
+    a, b3 = _consts_a_b3(curve, X1)
+
+    pre = F.add(fp, torch.stack([X1, X2, Y1, Y2, X1, X2]),
+                torch.stack([Y1, Y2, Z1, Z2, Z1, Z2]))
+    g1 = F.mul(fp, torch.stack([X1, Y1, Z1, pre[0], pre[2], pre[4]]),
+               torch.stack([X2, Y2, Z2, pre[1], pre[3], pre[5]]))
+    t0, t1, t2, u1, u2, u3 = g1.unbind(0)
+    s = F.add(fp, torch.stack([t0, t1, t0]), torch.stack([t1, t2, t2]))
+    t3, t5, t4 = F.sub(fp, torch.stack([u1, u2, u3]), s).unbind(0)
+    # X1Y2 + X2Y1, Y1Z2 + Y2Z1, X1Z2 + X2Z1
+
+    at4, bt2, at2, bt4 = F.mul(fp, torch.stack([a, b3, a, b3]),
+                               torch.stack([t4, t2, t2, t4])).unbind(0)
+    Z3p = F.add(fp, at4, bt2)                      # a*t4 + b3*t2
+    t0_3 = F.mul_small(fp, t0, 3)
+    X3p, t2m = F.sub(fp, torch.stack([t1, t0]),    # t1 - Z3p, t0 - a*t2
+                     torch.stack([Z3p, at2])).unbind(0)
+    Z3q, t1n = F.add(fp, torch.stack([t1, t0_3]),  # t1 + Z3p, 3*t0 + a*t2
+                     torch.stack([Z3p, at2])).unbind(0)
+
+    g3 = F.mul(fp, torch.stack([a, X3p]), torch.stack([t2m, Z3q]))
+    t4n = F.add(fp, bt4, g3[0])                    # b3*t4 + a*(t0 - a*t2)
+    g4 = F.mul(fp, torch.stack([t1n, t5, t3, t3, t5]),
+               torch.stack([t4n, t4n, X3p, t1n, Z3q]))
+    Y3, Z3 = F.add(fp, torch.stack([g3[1], g4[4]]),
+                   torch.stack([g4[0], g4[3]])).unbind(0)
+    X3 = F.sub(fp, g4[2], g4[1])
+    return torch.stack([X3, Y3, Z3], dim=-2)
+
+
+def _dbl_generic(curve: Curve, P):
+    """Complete projective doubling for any a (RCB16 Algorithm 3)."""
+    fp = curve.fp
+    X, Y, Z = P[..., 0, :], P[..., 1, :], P[..., 2, :]
+    a, b3 = _consts_a_b3(curve, X)
+
+    t0, t1, t2, xy, xz, yz = F.mul(
+        fp, torch.stack([X, Y, Z, X, X, Y]),
+        torch.stack([X, Y, Z, Y, Z, Z])).unbind(0)
+    t3, z3t, t2c = F.add(fp, torch.stack([xy, xz, yz]),
+                         torch.stack([xy, xz, yz])).unbind(0)  # 2XY, 2XZ, 2YZ
+
+    az3, bt2, at2, bz3 = F.mul(fp, torch.stack([a, b3, a, b3]),
+                               torch.stack([z3t, t2, t2, z3t])).unbind(0)
+    Y3p = F.add(fp, az3, bt2)                      # a*2XZ + b3*Z^2
+    t0_3 = F.mul_small(fp, t0, 3)
+    X3p, t3m = F.sub(fp, torch.stack([t1, t0]),    # t1 - Y3p, X^2 - a*Z^2
+                     torch.stack([Y3p, at2])).unbind(0)
+    Y3q, t0n = F.add(fp, torch.stack([t1, t0_3]),  # t1 + Y3p, 3X^2 + a*Z^2
+                     torch.stack([Y3p, at2])).unbind(0)
+
+    g3 = F.mul(fp, torch.stack([a, X3p]), torch.stack([t3m, Y3q]))
+    t3n = F.add(fp, g3[0], bz3)                    # a*(X^2 - aZ^2) + b3*2XZ
+    g4 = F.mul(fp, torch.stack([t0n, t2c, t3, t2c]),
+               torch.stack([t3n, t3n, X3p, t1]))
+    Y3 = F.add(fp, g3[1], g4[0])
+    X3 = F.sub(fp, g4[2], g4[1])
+    Z3 = F.mul_small(fp, g4[3], 4)                 # 8 Y^3 Z
+    return torch.stack([X3, Y3, Z3], dim=-2)
+
+
+def add(curve: Curve, P, Q):
+    """Complete projective addition (RCB16 Algorithm 7, a=0; Algorithm 1
+    for any other a).
+
+    For a = 0: 12 field muls + 3 small-constant muls, grouped into two
+    batched mul calls of six, as the JAX package does.
     """
+    if not curve.a_is_zero:
+        return _add_generic(curve, P, Q)
     fp = curve.fp
     b3 = curve.b3
     P, Q = torch.broadcast_tensors(P, Q)
@@ -120,8 +202,11 @@ def add(curve: Curve, P, Q):
 
 
 def dbl(curve: Curve, P):
-    """Complete projective doubling (RCB16 Algorithm 9, a=0): 8 field muls
-    + small-constant muls, in two batched calls of four."""
+    """Complete projective doubling (RCB16 Algorithm 9, a=0: 8 field muls
+    + small-constant muls, in two batched calls of four; Algorithm 3 for
+    any other a)."""
+    if not curve.a_is_zero:
+        return _dbl_generic(curve, P)
     fp = curve.fp
     b3 = curve.b3
     X, Y, Z = P[..., 0, :], P[..., 1, :], P[..., 2, :]
@@ -278,19 +363,26 @@ def base_mul_add_plain(curve: Curve, s, P, t):
 
 
 # --------------------------------------------------------------------------
-# dispatch by device: CPU tensors take the plain version, any other device
-# launches the kernel (which raises where it cannot run)
+# dispatch: the kernel for a curve it is written for on any device but the
+# CPU (it raises where it cannot run); the plain version otherwise
 # --------------------------------------------------------------------------
 
-def _on_cpu(t) -> bool:
-    return t.device.type == "cpu"
+def kernel_curve(curve: Curve) -> bool:
+    """The JAX package's `_pallas_ok` test of the curve: a = 0 and a base
+    field of the form 2**256 - 2**32 - k0, the curves the kernels are
+    written for (secp256k1); P-256 runs the generic plain path."""
+    return curve.a_is_zero and F._fast_k0(curve.fp) is not None
+
+
+def _plain(curve: Curve, t) -> bool:
+    return t.device.type == "cpu" or not kernel_curve(curve)
 
 
 def mul_comb(curve: Curve, table, k):
     """Comb scalar mult against a (64, 16, 3, L) table of any base point."""
-    if _on_cpu(k):
+    if _plain(curve, k):
         return mul_comb_plain(curve, table, k)
-    return cuda_ec.mul_comb(table, k)
+    return cuda_ec.mul_comb(curve, table, k)
 
 
 def mul_base(curve: Curve, k):
@@ -300,48 +392,49 @@ def mul_base(curve: Curve, k):
 
 def scalar_mul_windows(curve: Curve, P, k, windows: int = COMB_WINDOWS):
     """k*P over `windows` 4-bit windows, without GLV (`pallas_ec.scalar_mul`)."""
-    if _on_cpu(P):
+    if _plain(curve, P):
         return scalar_mul_windows_plain(curve, P, k, windows)
-    return cuda_ec.scalar_mul(P, k, windows)
+    return cuda_ec.scalar_mul(curve, P, k, windows)
 
 
 def dual_mul_windows(curve: Curve, P1, k1, P2, k2, windows: int):
-    if _on_cpu(P1):
+    if _plain(curve, P1):
         return dual_mul_windows_plain(curve, P1, k1, P2, k2, windows)
-    return cuda_ec.dual_mul(P1, k1, P2, k2, windows)
+    return cuda_ec.dual_mul(curve, P1, k1, P2, k2, windows)
 
 
 def quad_mul_windows(curve: Curve, P1, k1, P2, k2, P3, k3, P4, k4,
                      windows: int):
-    if _on_cpu(P1):
+    if _plain(curve, P1):
         return quad_mul_windows_plain(curve, P1, k1, P2, k2, P3, k3, P4, k4,
                                       windows)
-    return cuda_ec.quad_mul(P1, k1, P2, k2, P3, k3, P4, k4, windows)
+    return cuda_ec.quad_mul(curve, P1, k1, P2, k2, P3, k3, P4, k4, windows)
 
 
 def base_mul_add_glv(curve: Curve, P1, t1, P2, t2, s1, s2, sflags,
                      windows: int):
-    if _on_cpu(P1):
+    if _plain(curve, P1):
         return base_mul_add_glv_plain(curve, P1, t1, P2, t2, s1, s2, sflags,
                                       windows)
     return cuda_ec.base_mul_add_glv(
-        P1, t1, P2, t2, s1, s2, sflags, curve.tensor("g0_tables", P1.device),
-        windows)
+        curve, P1, t1, P2, t2, s1, s2, sflags,
+        curve.tensor("g0_tables", P1.device), windows)
 
 
 def base_mul_add_windows(curve: Curve, s, P, t):
     """g^s * P^t without GLV, 64 windows (`pallas_ec.base_mul_add`)."""
-    if _on_cpu(P):
+    if _plain(curve, P):
         return base_mul_add_plain(curve, s, P, t)
-    return cuda_ec.base_mul_add(s, P, t, curve.tensor("g0_table", P.device))
+    return cuda_ec.base_mul_add(curve, s, P, t,
+                                curve.tensor("g0_table", P.device))
 
 
 def pt_add(curve: Curve, P, Q):
     """One complete add per lane, as a kernel launch on the card (the TPU's
     `_pt_add_kernel`); `add` is its plain version."""
-    if _on_cpu(P):
+    if _plain(curve, P):
         return add(curve, P, Q)
-    return cuda_ec.pt_add(P, Q)
+    return cuda_ec.pt_add(curve, P, Q)
 
 
 # --------------------------------------------------------------------------
@@ -460,6 +553,24 @@ def serialize_uncompressed(curve: Curve, P):
     x, y = to_affine(curve, P)
     prefix = torch.where(is_infinity(P), 0, 4).to(torch.uint8).unsqueeze(-1)
     return torch.cat([prefix, F.to_bytes_be(x), F.to_bytes_be(y)], dim=-1)
+
+
+def on_curve(curve: Curve, P):
+    """Projective on-curve check Y^2 Z == X^3 + a X Z^2 + b Z^3 -> bool
+    (...,); the a term only for a != 0, as the JAX package."""
+    fp = curve.fp
+    X, Y, Z = P[..., 0, :], P[..., 1, :], P[..., 2, :]
+    lhs = F.mul(fp, F.mul(fp, Y, Y), Z)
+    x3 = F.mul(fp, F.mul(fp, X, X), X)
+    z2 = F.mul(fp, Z, Z)
+    z3 = F.mul(fp, z2, Z)
+    rhs = F.add(fp, x3, F.mul(fp, z3, F.const(curve.b_limbs, Z.device,
+                                               Z.shape[:-1])))
+    if not curve.a_is_zero:
+        axz2 = F.mul(fp, F.mul(fp, X, z2),
+                     F.const(curve.a_limbs, X.device, X.shape[:-1]))
+        rhs = F.add(fp, rhs, axz2)
+    return F.eq(lhs, rhs)
 
 
 # --------------------------------------------------------------------------

@@ -8,11 +8,13 @@ products without carries.
 
 Every function returns canonical values in [0, m), so results are
 bit-identical to the JAX package however the intermediate columns are
-formed.  Reduction is fold reduction for moduli m = 2**256 - K with
-K < 2**136 (both secp256k1 fields): replace H*2**256 + L by L + H*K until
-the value is below 2m, then one conditional subtract.  Everything is
-branchless over the batch; the only Python control flow depends on static
-bounds, never on data.
+formed.  Reduction follows the JAX package's choice by modulus: fold
+reduction for m = 2**256 - K with K < 2**136 (both secp256k1 fields):
+replace H*2**256 + L by L + H*K until the value is below 2m, then one
+conditional subtract; Barrett reduction (HAC 14.42) otherwise (both P-256
+fields, whose K ~ 2**224 would barely shrink under folding).  Everything
+is branchless over the batch; the only Python control flow depends on
+static bounds, never on data.
 
 These plain tensor functions run on whatever device their inputs lie on.
 The CUDA kernels (`ops/cuda_ec.py`) keep their own field layer in
@@ -86,12 +88,18 @@ def const(x, device, batch_shape=()) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class FieldSpec:
-    """A prime field GF(m), 2**255 < m < 2**256, K = 2**256 - m < 2**136."""
+    """A prime field GF(m), 2**255 < m < 2**256.
+
+    Fold reduction when K = 2**256 - m < 2**136 (both secp256k1 fields),
+    else Barrett (mu_limbs set; the P-256 fields)."""
 
     name: str
     modulus: int
+    m_limbs: np.ndarray = dc_field(repr=False)        # (16,)
+    m17_limbs: np.ndarray = dc_field(repr=False)      # (17,) m zero-extended
     k_limbs: np.ndarray = dc_field(repr=False)        # (nk,) K = 2**256 - m
     exp_inv_bits: np.ndarray = dc_field(repr=False)   # (256,) bits of m-2, MSB first
+    mu_limbs: np.ndarray | None = dc_field(repr=False, default=None)  # (17,) 2**512 // m
 
     def __hash__(self):
         return hash((self.name, self.modulus))
@@ -107,16 +115,27 @@ class FieldSpec:
 @functools.lru_cache(maxsize=None)
 def make_spec(name: str, modulus: int) -> FieldSpec:
     K = (1 << 256) - modulus
-    if not 0 < K < (1 << 136):
-        # Barrett reduction (the P-256 fields) is not ported yet
-        raise NotImplementedError(
-            f"{name}: only fold-friendly moduli 2**256 - K, K < 2**136"
-        )
+    if not 0 < K < (1 << 255):
+        raise ValueError(f"{name}: the modulus must satisfy 2**255 < m < 2**256")
     nk = (K.bit_length() + RADIX_BITS - 1) // RADIX_BITS
     exp = modulus - 2
     bits = np.array([(exp >> (255 - i)) & 1 for i in range(256)], np.int64)
-    return FieldSpec(name=name, modulus=modulus, k_limbs=int_to_limbs(K, nk),
-                     exp_inv_bits=bits)
+    # fold reduction would not converge quickly: Barrett
+    mu = int_to_limbs((1 << 512) // modulus, 17) if K >= (1 << 136) else None
+    return FieldSpec(name=name, modulus=modulus, m_limbs=int_to_limbs(modulus),
+                     m17_limbs=int_to_limbs(modulus, LIMBS + 1),
+                     k_limbs=int_to_limbs(K, nk), exp_inv_bits=bits,
+                     mu_limbs=mu)
+
+
+def _fast_k0(spec: FieldSpec):
+    """k0 if m = 2**256 - 2**32 - k0 with k0 <= 1022, else None: the moduli
+    the JAX package's Pallas kernels, and the port's CUDA kernels, are
+    written for (secp256k1's base field qualifies, P-256's does not)."""
+    k = spec.k_limbs
+    if len(k) == 3 and int(k[1]) == 0 and int(k[2]) == 1 and int(k[0]) <= 1022:
+        return int(k[0])
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -137,8 +156,8 @@ def _nlimbs(bound: int) -> int:
     return max(1, (bound.bit_length() + RADIX_BITS - 1) // RADIX_BITS)
 
 
-def _passes(x, bound: int, carry: bool = False):
-    """Local carry passes until every limb is <= 2**16.
+def _passes(x, bound: int, carry: bool = False, target: int = 1 << RADIX_BITS):
+    """Local carry passes until every limb is <= target (2**16 by default).
 
     x: nonnegative columns (..., W), each <= bound.  Returns (limbs,
     carry_out) with value = limbs + carry_out * 2**(16W); without `carry`
@@ -146,7 +165,7 @@ def _passes(x, bound: int, carry: bool = False):
     number of passes follows from the static bound.
     """
     out = torch.zeros_like(x[..., 0]) if carry else None
-    while bound > (1 << RADIX_BITS):
+    while bound > target:
         hi = x >> RADIX_BITS
         if carry:
             out = out + hi[..., -1]
@@ -215,7 +234,7 @@ def _spec_consts(spec: FieldSpec, device: torch.device):
         return torch.as_tensor(arr, dtype=DTYPE).to(device)
     K = spec.K
     return (t(spec.k_limbs), t(int_to_limbs(K, LIMBS)),
-            t(int_to_limbs(K, LIMBS + 1)), t(int_to_limbs(spec.modulus)))
+            t(int_to_limbs(K, LIMBS + 1)), t(spec.m_limbs))
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,14 +257,93 @@ def _fold_matrix(spec: FieldSpec, device: torch.device):
     return torch.as_tensor(M.reshape(LIMBS * LIMBS, LIMBS + 1)).to(device)
 
 
+# Barrett's digit bound: two carry passes bring product columns (below
+# 17 * 2**32) to at most 2**16 + 16; a third would only trim that overflow.
+_LOOSE = (1 << RADIX_BITS) + 32
+
+
+@functools.lru_cache(maxsize=None)
+def _barrett_consts(spec: FieldSpec, device: torch.device):
+    """mu = 2**512 // m (17 limbs), and 0, m, 2m, 3m, 4m as 17 limbs, on
+    `device`."""
+    def t(arr):
+        return torch.as_tensor(arr, dtype=DTYPE).to(device)
+    return (t(spec.mu_limbs),
+            t(np.stack([int_to_limbs(j * spec.modulus, LIMBS + 1)
+                        for j in range(5)])))
+
+
+@functools.lru_cache(maxsize=None)
+def _bias(device: torch.device):
+    """17 columns 2**38, 2**38 - 2**22, ..., 2**38 - 2**22: each column's
+    2**38 is 2**22 of the column above, so they sum to 2**(38 + 256)."""
+    b = torch.full((LIMBS + 1,), (1 << 38) - (1 << 22), dtype=DTYPE)
+    b[0] = 1 << 38
+    return b.to(device)
+
+
+def _reduce_barrett(spec: FieldSpec, v):
+    """Barrett reduction (HAC Alg 14.42, b = 2**16, k = 16) of a value
+    v < 2**512 given as nonnegative digits (..., W <= 32), each <= _LOOSE
+    (carried but not rippled), mod m > 2**240 (here m > 2**255).
+
+    HAC's q_hat = floor(floor(v / 2**240) * mu / 2**272), mu = 2**512 // m,
+    satisfies q - 2 <= q_hat <= q = v // m.  Here both floors are read off
+    digits that are carried but not rippled (each <= `_LOOSE`, just over
+    2**16, so the digits below a cut stand for less than twice its unit),
+    each of which can only undercount by one, so q - 4 <= q_hat <= q and
+    r = v - q_hat*m < 5m < 2**259.
+
+    The five candidates r - j*m, j = 0..4, are computed mod 2**272 in one
+    stacked carry propagation: the low 17 product columns of q_hat*m (each
+    < 2**37) and j*m's limbs are subtracted from v's low 17 digits column
+    by column, each column lifted by `_bias` (nonnegative columns below
+    2**39; the lifts add up to 0 mod 2**272).  A candidate is negative iff
+    its residue is 2**272 minus at most 4m, i.e. its top limb is >= 2**15
+    (a nonnegative one is below 5m < 2**259); the answer is the last
+    nonnegative one.  Results equal the JAX package's `_reduce_barrett`
+    (canonical values).
+    """
+    mu, mults = _barrett_consts(spec, v.device)
+    v = _fit(v, 2 * LIMBS)
+    q1 = v[..., LIMBS - 1:]                                       # (..., 17)
+    q2, _ = _passes(_fit(_mul_cols(q1, mu.expand(q1.shape)), 2 * LIMBS + 2),
+                    (LIMBS + 1) * _LOOSE * MASK, target=_LOOSE)
+    q3 = q2[..., LIMBS + 1:]                                      # (..., 17)
+    cols = _mul_cols(q3, mults[1, :LIMBS].expand(q3.shape[:-1] + (LIMBS,)))
+    r0 = v[..., :LIMBS + 1] - cols[..., :LIMBS + 1] + _bias(v.device)
+    cand, _ = _propagate(r0 - mults.reshape((5,) + (1,) * (r0.dim() - 1)
+                                            + (LIMBS + 1,)),
+                         1 << 39)                                 # mod 2**272
+    keep = (cand[..., LIMBS] < (1 << (RADIX_BITS - 1))).sum(0) - 1
+    return torch.gather(cand[..., :LIMBS], 0,
+                        keep[None, ..., None].expand((1,) + r0.shape[:-1]
+                                                     + (LIMBS,)))[0]
+
+
+def reduce_wide(spec: FieldSpec, v):
+    """Reduce normalized digits (..., W >= 16) mod m to canonical (..., 16):
+    Barrett for a Barrett modulus (W <= 32), the fold otherwise."""
+    return _reduce(spec, v, MASK, (1 << (RADIX_BITS * v.shape[-1])) - 1)
+
+
 def _reduce(spec: FieldSpec, v, col_bound: int, val_bound: int):
     """Reduce nonnegative columns (..., W) mod m to canonical (..., 16).
 
     col_bound bounds every column and val_bound the value (static ints).
-    Each fold maps H*2**256 + L to L + H*K; once the value is below 2m, one
-    conditional subtract finishes: v >= m iff v + K >= 2**256.
+    A Barrett modulus and a value of 2**272 or more (a product): the
+    columns are carried into 32 digits and Barrett reduces them.  Otherwise
+    each fold maps H*2**256 + L to L + H*K; once the value is below 2m, one
+    conditional subtract finishes: v >= m iff v + K >= 2**256.  (Below
+    2**272, H is one limb, and one fold brings even a P-256 value below
+    2**256 + 2**240 < 2m: a small-constant mul needs no Barrett.)
     """
     m, K = spec.modulus, spec.K
+    if spec.mu_limbs is not None and val_bound >= (1 << 272):
+        if val_bound >= (1 << 512):
+            raise ValueError("Barrett reduction takes values below 2**512")
+        digits, _ = _passes(_fit(v, 2 * LIMBS), col_bound, target=_LOOSE)
+        return _reduce_barrett(spec, digits)
     k, _, k17, _ = _spec_consts(spec, v.device)
     nk, kmax = len(spec.k_limbs), int(spec.k_limbs.max())
     while val_bound >= 2 * m:
@@ -380,27 +478,38 @@ def select(cond, a, b):
 # randomness
 # --------------------------------------------------------------------------
 
-def from_random_bits(spec: FieldSpec, bits32):
-    """32-bit random words (..., 8), as int64 in [0, 2**32) -> field element.
+def random_words(spec: FieldSpec) -> int:
+    """Random 32-bit words a field element takes: 8, or 16 for a Barrett
+    modulus (its 512-bit value is reduced, bias < 2**-256)."""
+    return 8 if spec.mu_limbs is None else 16
 
-    Values in [m, 2**256) wrap once; for m within 2**136 of 2**256 the
-    statistical distance from uniform is < 2**-120.  This is the port's
-    randomness seam: tests hand both packages the same words.
+
+def from_random_bits(spec: FieldSpec, bits32):
+    """32-bit random words (..., 8 or 16), as int64 in [0, 2**32) -> field
+    element.
+
+    8 words: values in [m, 2**256) wrap once; for m within 2**136 of 2**256
+    the statistical distance from uniform is < 2**-120.  16 words: the
+    512-bit value is reduced mod m.  This is the port's randomness seam:
+    tests hand both packages the same words.
     """
-    if bits32.shape[-1] != 8:
-        raise ValueError("fold-friendly moduli take 8 random words per element")
+    words = bits32.shape[-1]
+    if words not in (8, 16):
+        raise ValueError("a field element takes 8 or 16 random words")
     limbs = torch.stack([bits32 & MASK, bits32 >> RADIX_BITS], dim=-1)
-    v = limbs.reshape(bits32.shape[:-1] + (LIMBS,))
-    return _reduce(spec, v, MASK, (1 << 256) - 1)
+    v = limbs.reshape(bits32.shape[:-1] + (2 * words,))
+    return _reduce(spec, v, MASK, (1 << (32 * words)) - 1)
 
 
 def random(spec: FieldSpec, generator: torch.Generator, shape=(),
            device=None):
-    """Uniform field elements: 8 words per element drawn from `generator` on
-    its own device, then moved to `device` (default: the generator's), so one
-    seeded CPU generator gives the same elements on every device."""
-    words = torch.randint(0, 1 << 32, tuple(shape) + (8,), generator=generator,
-                          dtype=DTYPE, device=generator.device)
+    """Uniform field elements: `random_words(spec)` words each, drawn from
+    `generator` on its own device, then moved to `device` (default: the
+    generator's), so one seeded CPU generator gives the same elements on
+    every device."""
+    words = torch.randint(0, 1 << 32, tuple(shape) + (random_words(spec),),
+                          generator=generator, dtype=DTYPE,
+                          device=generator.device)
     return from_random_bits(spec, words.to(device or generator.device))
 
 

@@ -1,17 +1,20 @@
-"""The port keeps its own copies of three modules of the JAX package
-(`utils/log.py`, `utils/host_curve.py` and the communication models of
-`utils/trackers.py`), so that it imports nothing of that package.  Each
-copy is held to its original by behaviour: the same log lines, the same
-results on seeded points of both curves, the same message sizes and
-bytes."""
+"""The port keeps its own copies of four modules of the JAX package
+(`utils/log.py`, `utils/host_curve.py`, the communication models of
+`utils/trackers.py` and the native runtime binding `runtime/native.py`),
+so that it imports nothing of that package.  Each copy is held to its
+original by behaviour: the same log lines, the same results on seeded
+points of both curves, the same message sizes and bytes, the same phase
+ids, library and board traffic."""
 
 import random
 
 import pytest
 
+from privacy_auction_tpu.runtime import native as JN
 from privacy_auction_tpu.utils import host_curve as JH
 from privacy_auction_tpu.utils import log as JL
 from privacy_auction_tpu.utils import trackers as JT
+from privacy_auction_tpu_torch.runtime import native as N
 from privacy_auction_tpu_torch.utils import host_curve as H
 from privacy_auction_tpu_torch.utils import log as L
 from privacy_auction_tpu_torch.utils import trackers as T
@@ -73,7 +76,27 @@ def _check_trackers():
     assert got[0] == got[1]
 
 
+def _check_native():
+    for k in ("PHASE_COMMIT", "PHASE_ROUND1", "PHASE_ROUND2", "PHASE_ROUND3",
+              "PHASE_OT_R1", "PHASE_OT_S", "PHASE_ANNOUNCE"):
+        assert getattr(N, k) == getattr(JN, k), k
+    assert N._LIB_PATH == JN._LIB_PATH            # one library for both
+    assert N.available() == JN.available()
+    if not N.available():
+        return
+    got = []
+    for mod in (N, JN):
+        b = mod.NativeBoard(3)
+        b.post(mod.PHASE_ROUND2, 1, 2, b"m" * 77, "bidder")
+        fetched = [b.fetch(mod.PHASE_ROUND2, 1, j, "verifier") for j in range(3)]
+        b.account("evaluator", 5)
+        got.append((fetched, b.bytes("bidder"), b.bytes("verifier"),
+                    b.bytes("evaluator"), b.total_bytes(), b.n_parties))
+    assert got[0] == got[1]
+
+
 def test_copies_behave_as_their_originals(capsys, monkeypatch):
     _check_log(capsys, monkeypatch)
     _check_host_curve()
     _check_trackers()
+    _check_native()

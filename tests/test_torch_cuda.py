@@ -49,31 +49,31 @@ def _check_kernel_matches_plain_on_card(card, name):
     flags = torch.randint(0, 2, (LANES, 2), device=card)
     if name == "mul_comb":
         table = C.tensor("comb_table", card)
-        got, want = cuda_ec.mul_comb(table, ks[1]), ec.mul_comb_plain(C, table, ks[1])
+        got, want = cuda_ec.mul_comb(C, table, ks[1]), ec.mul_comb_plain(C, table, ks[1])
     elif name == "dual_mul":
-        got = cuda_ec.dual_mul(*args[:4], GLV_WINDOWS)
+        got = cuda_ec.dual_mul(C, *args[:4], GLV_WINDOWS)
         want = ec.dual_mul_windows_plain(C, *args[:4], GLV_WINDOWS)
     elif name == "dual_mul_64":
-        got = cuda_ec.dual_mul(pts[0], full[0], pts[1], full[1], COMB_WINDOWS)
+        got = cuda_ec.dual_mul(C, pts[0], full[0], pts[1], full[1], COMB_WINDOWS)
         want = ec.dual_mul_windows_plain(C, pts[0], full[0], pts[1], full[1],
                                          COMB_WINDOWS)
     elif name == "scalar_mul":
-        got = cuda_ec.scalar_mul(pts[0], full[0])
+        got = cuda_ec.scalar_mul(C, pts[0], full[0])
         want = ec.scalar_mul_windows_plain(C, pts[0], full[0])
     elif name == "base_mul_add":
-        got = cuda_ec.base_mul_add(full[0], pts[0], full[1],
+        got = cuda_ec.base_mul_add(C, full[0], pts[0], full[1],
                                    C.tensor("g0_table", card))
         want = ec.base_mul_add_plain(C, full[0], pts[0], full[1])
     elif name == "pt_add":
         Q = pts[1].clone()
         Q[3] = pts[0][3]                             # P + P
         Q[4] = ec.neg(C, pts[0][4])                  # P + (-P)
-        got, want = cuda_ec.pt_add(pts[0], Q), ec.add(C, pts[0], Q)
+        got, want = cuda_ec.pt_add(C, pts[0], Q), ec.add(C, pts[0], Q)
     elif name == "quad_mul":
-        got = cuda_ec.quad_mul(*args, GLV_WINDOWS)
+        got = cuda_ec.quad_mul(C, *args, GLV_WINDOWS)
         want = ec.quad_mul_windows_plain(C, *args, GLV_WINDOWS)
     else:
-        got = cuda_ec.base_mul_add_glv(*args[:4], ks[2], ks[3], flags,
+        got = cuda_ec.base_mul_add_glv(C, *args[:4], ks[2], ks[3], flags,
                                        C.tensor("g0_tables", card), GLV_WINDOWS)
         want = ec.base_mul_add_glv_plain(C, *args[:4], ks[2], ks[3], flags,
                                          GLV_WINDOWS)
@@ -97,12 +97,12 @@ def _check_golden_on_card(card):
         return L.g(name, card)
 
     outs = {
-        "scalar_mul": cuda_ec.scalar_mul(g("P"), g("k")),
-        "dual_mul": cuda_ec.dual_mul(g("P"), g("k"), g("Q"), g("t"),
+        "scalar_mul": cuda_ec.scalar_mul(C, g("P"), g("k")),
+        "dual_mul": cuda_ec.dual_mul(C, g("P"), g("k"), g("Q"), g("t"),
                                      COMB_WINDOWS),
-        "base_mul_add": cuda_ec.base_mul_add(g("k"), g("P"), g("t"),
+        "base_mul_add": cuda_ec.base_mul_add(C, g("k"), g("P"), g("t"),
                                              C.tensor("g0_table", card)),
-        "pt_add": cuda_ec.pt_add(g("add.P"), g("add.Q")),
+        "pt_add": cuda_ec.pt_add(C, g("add.P"), g("add.Q")),
     }
     for name, out in outs.items():
         L.check(name, out)
@@ -189,23 +189,23 @@ def test_group_kernels_match_plain_on_card(card):
         dual64 = [args[4], full[0], args[0], full[1]]
         bma = [full[1], args[4], full[0]]            # s P t
         cases = {
-            "mul_comb": (lambda shape: cuda_ec.mul_comb(table, full[0], shape),
+            "mul_comb": (lambda shape: cuda_ec.mul_comb(C, table, full[0], shape),
                          ec.mul_comb_plain(C, table, full[0])),
-            "dual_mul": (lambda shape: cuda_ec.dual_mul(*dual, GLV_WINDOWS, shape),
+            "dual_mul": (lambda shape: cuda_ec.dual_mul(C, *dual, GLV_WINDOWS, shape),
                          ec.dual_mul_windows_plain(C, *dual, GLV_WINDOWS)),
             "dual_mul_64": (
-                lambda shape: cuda_ec.dual_mul(*dual64, COMB_WINDOWS, shape),
+                lambda shape: cuda_ec.dual_mul(C, *dual64, COMB_WINDOWS, shape),
                 ec.dual_mul_windows_plain(C, *dual64, COMB_WINDOWS)),
             "scalar_mul": (
-                lambda shape: cuda_ec.scalar_mul(args[4], full[0], shape=shape),
+                lambda shape: cuda_ec.scalar_mul(C, args[4], full[0], shape=shape),
                 ec.scalar_mul_windows_plain(C, args[4], full[0])),
             "base_mul_add": (
-                lambda shape: cuda_ec.base_mul_add(*bma, g0b, shape),
+                lambda shape: cuda_ec.base_mul_add(C, *bma, g0b, shape),
                 ec.base_mul_add_plain(C, *bma)),
-            "quad_mul": (lambda shape: cuda_ec.quad_mul(*args, GLV_WINDOWS, shape),
+            "quad_mul": (lambda shape: cuda_ec.quad_mul(C, *args, GLV_WINDOWS, shape),
                          ec.quad_mul_windows_plain(C, *args, GLV_WINDOWS)),
             "base_mul_add_glv": (
-                lambda shape: cuda_ec.base_mul_add_glv(*glv, g0, GLV_WINDOWS, shape),
+                lambda shape: cuda_ec.base_mul_add_glv(C, *glv, g0, GLV_WINDOWS, shape),
                 ec.base_mul_add_glv_plain(C, *glv, GLV_WINDOWS)),
         }
         for name, (run, want) in cases.items():
@@ -273,8 +273,8 @@ def test_ladders64_group_kernels_hold_jax_golden_on_card(card):
         for group in cuda_ec.GROUPS[name]:
             shape = cuda_ec.launch_shape(name, lanes, group=group)
             if name == "scalar_mul":
-                out = cuda_ec.scalar_mul(g("P"), g("k"), shape=shape)
+                out = cuda_ec.scalar_mul(C, g("P"), g("k"), shape=shape)
             else:
-                out = cuda_ec.base_mul_add(g("k"), g("P"), g("t"), g0b, shape)
+                out = cuda_ec.base_mul_add(C, g("k"), g("P"), g("t"), g0b, shape)
             L.check(name, out)
         assert cuda_ec.launches[name] == before + len(cuda_ec.GROUPS[name])

@@ -28,6 +28,7 @@ Prints the card's name and power limit and one JSON line {"root", "card",
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import pathlib
 import random
@@ -74,6 +75,9 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rng = random.Random(args.seed)
+    # newer checkouts' wrappers take the curve first, older ones do not
+    cv = ((C,) if next(iter(inspect.signature(cuda_ec.mul_comb).parameters))
+          == "curve" else ())
 
     def scalars(n, bits=256):
         ks = [rng.randrange(1 << bits) % C.host.n for _ in range(n)]
@@ -87,29 +91,29 @@ def main() -> int:
         launch shape) only where given, so that older checkouts run too."""
         if name == "mul_comb":
             table, k = C.tensor("comb_table", dev), scalars(n)
-            return lambda: cuda_ec.mul_comb(table, k, **shape)
+            return lambda: cuda_ec.mul_comb(*cv, table, k, **shape)
         if name == "pt_add":
             P, Q = points(n), points(n)
-            return lambda: cuda_ec.pt_add(P, Q)
+            return lambda: cuda_ec.pt_add(*cv, P, Q)
         if name == "scalar_mul":
             P, k = points(n), scalars(n)
-            return lambda: cuda_ec.scalar_mul(P, k, **shape)
+            return lambda: cuda_ec.scalar_mul(*cv, P, k, **shape)
         if name == "dual_mul_64":
             a = [points(n), scalars(n), points(n), scalars(n)]
-            return lambda: cuda_ec.dual_mul(*a, COMB_WINDOWS)
+            return lambda: cuda_ec.dual_mul(*cv, *a, COMB_WINDOWS)
         if name == "base_mul_add":
             s, P, t, g0 = scalars(n), points(n), scalars(n), C.tensor("g0_table", dev)
-            return lambda: cuda_ec.base_mul_add(s, P, t, g0, **shape)
+            return lambda: cuda_ec.base_mul_add(*cv, s, P, t, g0, **shape)
         srcs = {"dual_mul": 2, "quad_mul": 4, "base_mul_add_glv": 2}[name]
         a = [t for _ in range(srcs) for t in (points(n), scalars(n, 132))]
         if name == "dual_mul":
-            return lambda: cuda_ec.dual_mul(*a, GLV_WINDOWS, **shape)
+            return lambda: cuda_ec.dual_mul(*cv, *a, GLV_WINDOWS, **shape)
         if name == "quad_mul":
-            return lambda: cuda_ec.quad_mul(*a, GLV_WINDOWS, **shape)
+            return lambda: cuda_ec.quad_mul(*cv, *a, GLV_WINDOWS, **shape)
         s1, s2 = scalars(n, 132), scalars(n, 132)
         flags = torch.randint(0, 2, (n, 2), device=dev)
         g0 = C.tensor("g0_tables", dev)
-        return lambda: cuda_ec.base_mul_add_glv(*a, s1, s2, flags, g0,
+        return lambda: cuda_ec.base_mul_add_glv(*cv, *a, s1, s2, flags, g0,
                                                 GLV_WINDOWS, **shape)
 
     def time_ms(fn):

@@ -1,7 +1,7 @@
 """Write the golden vectors that hold the PyTorch port to the JAX package.
 
     JAX_PLATFORMS=cpu python tools/torch_golden.py \
-        [--only seal ccs22 ladders64 seal_metered ccs22_metered]
+        [--only seal ccs22 ladders64 seal_metered ccs22_metered wire p256]
 
 Runs the JAX package (`privacy_auction_tpu`) on the CPU from seeded inputs
 and writes `tests/data/torch_golden_<name>.npz` for each name (all five by
@@ -45,6 +45,22 @@ the role-metered CCS22 driver at bids [2, 1, 3, 0], c = 2, evaluator 0:
 the outcome, deciding bits and bytes per category.
 `tests/test_torch_seal_tamper*.py` and `tests/test_torch_ccs22_metered.py`
 hold the port's metered drivers to them.
+
+`wire` records the JAX package's `runtime/wire.py` bytes (`pack`) and sizes
+(`wire_size`) of four board messages built from the `seal` file's limbs:
+the two-bidder commitment, bidder 0's round-one keys at step 1, the
+Stage1 round two of both bidders and bidder 1's Stage2 round two.  It
+reads `torch_golden_seal.npz`, so it runs after `seal`.
+`tests/test_torch_wire.py` holds the port's wire module to them.
+
+`p256` records NIST P-256 on the JAX package's generic path (Barrett
+fields, RCB16 Alg 1/3, 64-window ladders, no Pallas): for both fields
+mul, add, sub and inv of seeded values with edge values, the reduction of
+512-bit values (`reduce_wide`) and of 16 random words (`from_random_bits`);
+on the curve `add` and `dbl` with infinity, P + P and P + (-P) lanes, and
+`scalar_mul`, `mul_base`, `dual_mul` and `base_mul_add` at k = 0, 1, n - 1
+and seeded scalars, as projective limbs.  `tests/test_torch_p256_*.py`
+hold the port's plain path to them.
 
 Times on an 8-core x86 CPU: `seal_metered` and `ccs22_metered` together
 took 6 min 32 s of wall time (another process shared the CPU for part
@@ -445,10 +461,110 @@ def ccs22_metered_arrays():
                                       np.int64)}
 
 
+def wire_arrays():
+    from privacy_auction_tpu.runtime import wire
+
+    gold = np.load(DATA / "torch_golden_seal.npz")
+
+    def u(name):
+        return jnp.asarray(gold[name].astype(np.uint32))
+
+    def fields(cls, prefix, idx):
+        return cls(**{f: u(f"{prefix}.{f}")[idx] for f in cls._fields})
+
+    lane1 = slice(1, 2)
+    pok_c = u("commit_pok.eps"), u("commit_pok.rho")      # (a/b, n, c, ...)
+    pok_1 = u("r1_pok.eps"), u("r1_pok.rho")              # (x/r, c, n, ...)
+    msgs = {
+        "commit": seal.CommitmentPub(
+            phi=u("phi"), A=u("A"), B=u("B"),
+            pok_a=nizk.PoKDLog(pok_c[0][0], pok_c[1][0]),
+            pok_b=nizk.PoKDLog(pok_c[0][1], pok_c[1][1]),
+            powf=fields(nizk.PoWFCom, "powf", slice(None))),
+        "round1": seal.RoundOnePub(
+            X=u("X")[1, 0:1], R=u("R")[1, 0:1],
+            pok_x=nizk.PoKDLog(pok_1[0][0, 1, 0:1], pok_1[1][0, 1, 0:1]),
+            pok_r=nizk.PoKDLog(pok_1[0][1, 1, 0:1], pok_1[1][1, 1, 0:1])),
+        "stage1": seal.RoundTwoPub(
+            b=u("stage1_b"), proof1=fields(nizk.PoWFStage1, "stage1",
+                                           slice(None)), proof2=None),
+        "stage2": seal.RoundTwoPub(
+            b=u("stage2_b")[lane1], proof1=None,
+            proof2=fields(nizk.PoWFStage2, "stage2", lane1)),
+    }
+    out = {}
+    for name, msg in msgs.items():
+        data = wire.pack(CURVE, msg)
+        out[f"wire.{name}"] = np.frombuffer(data, np.uint8)
+        out[f"wire.{name}.size"] = np.asarray(wire.wire_size(msg))
+    return out
+
+
+P256_SEED = 0x9256
+
+
+def p256_arrays():
+    from privacy_auction_tpu.curves import get_curve
+
+    curve = get_curve("p256")
+    host = curve.host
+    rng = random.Random(P256_SEED)
+    out = {}
+    for fname in ("fp", "fn"):
+        spec = getattr(curve, fname)
+        m = spec.modulus
+        xs = [rng.randrange(m) for _ in range(8)] + [0, 1, m - 1, m - 2]
+        ys = [rng.randrange(m) for _ in range(8)] + [m - 1, 0, m - 1, 2]
+        a, b = jnp.asarray(F.ints_to_limbs(xs)), jnp.asarray(F.ints_to_limbs(ys))
+        out[f"{fname}.a"], out[f"{fname}.b"] = np.asarray(a), np.asarray(b)
+        for op in ("mul", "add", "sub"):
+            out[f"{fname}.{op}"] = np.asarray(
+                jax.jit(lambda a, b, op=op: getattr(F, op)(spec, a, b))(a, b))
+        out[f"{fname}.inv"] = np.asarray(jax.jit(lambda a: F.inv(spec, a))(a))
+        wide = [rng.randrange(1 << 512) for _ in range(6)] + [
+            0, (1 << 512) - 1, m, m - 1, m * m - 1, (m - 1) ** 2]
+        v = jnp.asarray(np.stack([F.int_to_limbs(x, 32) for x in wide]))
+        out[f"{fname}.wide"] = np.asarray(v)
+        out[f"{fname}.reduce_wide"] = np.asarray(
+            jax.jit(lambda v: F.reduce_wide(spec, v))(v))
+        w = np.asarray([[rng.randrange(1 << 32) for _ in range(16)]
+                        for _ in range(6)], np.uint32)
+        out[f"{fname}.rand_words"] = w
+        out[f"{fname}.from_random_bits"] = np.asarray(
+            jax.jit(lambda w: F.from_random_bits(spec, w))(jnp.asarray(w)))
+
+    pts = [host.mul(rng.randrange(1, host.n), host.g) for _ in range(4)]
+    case_p = [pts[0], pts[1], pts[0], None, pts[2], pts[2], None]
+    case_q = [pts[1], pts[0], pts[0], pts[1], None, host.neg(pts[2]), None]
+    P = jnp.asarray(ec.encode_host_points(case_p))
+    Q = jnp.asarray(ec.encode_host_points(case_q))
+    out["ec.add.P"], out["ec.add.Q"] = np.asarray(P), np.asarray(Q)
+    out["ec.add"] = np.asarray(jax.jit(lambda P, Q: ec.add(curve, P, Q))(P, Q))
+    out["ec.dbl"] = np.asarray(jax.jit(lambda P: ec.dbl(curve, P))(P))
+    ks = [0, 1, host.n - 1] + [rng.randrange(host.n) for _ in range(2)]
+    ts = [host.n - 1, 0, 1] + [rng.randrange(host.n) for _ in range(2)]
+    k, t = jnp.asarray(F.ints_to_limbs(ks)), jnp.asarray(F.ints_to_limbs(ts))
+    base = jnp.asarray(ec.encode_host_points([pts[3], pts[0], None, pts[1],
+                                              pts[2]]))
+    other = jnp.asarray(ec.encode_host_points([pts[2], None, pts[1], pts[3],
+                                               pts[0]]))
+    out["ec.k"], out["ec.t"] = np.asarray(k), np.asarray(t)
+    out["ec.base"], out["ec.other"] = np.asarray(base), np.asarray(other)
+    out["ec.scalar_mul"] = np.asarray(
+        jax.jit(lambda P, k: ec.scalar_mul(curve, P, k))(base, k))
+    out["ec.mul_base"] = np.asarray(jax.jit(lambda k: ec.mul_base(curve, k))(k))
+    out["ec.dual_mul"] = np.asarray(jax.jit(
+        lambda P, k, Q, t: ec.dual_mul(curve, P, k, Q, t))(base, k, other, t))
+    out["ec.base_mul_add"] = np.asarray(jax.jit(
+        lambda s, P, t: ec.base_mul_add(curve, s, P, t))(k, base, t))
+    return out
+
+
 BUILDERS = {"seal": seal_arrays, "ccs22": ccs22_arrays,
             "ladders64": ladders64_arrays,
             "seal_metered": seal_metered_arrays,
-            "ccs22_metered": ccs22_metered_arrays}
+            "ccs22_metered": ccs22_metered_arrays,
+            "wire": wire_arrays, "p256": p256_arrays}
 # builders that share a file; the others write torch_golden_<name>.npz
 SHARED_FILES = {"seal_metered": "metered", "ccs22_metered": "metered"}
 
