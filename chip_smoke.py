@@ -11,15 +11,15 @@ package, in these phases; any failure raises and the exit code is non-zero:
    nvcc (sm_90a) into `build/cuda_ec/`, with ptxas' register and spill
    report; then reads every table select of every kernel variant in the
    SASS (cuobjdump, next to nvcc): it fails unless each of the 12 variants
-   that look up tables (the six group kernels at both of their threads a
-   lane, `cuda_ec.GROUPS`) has a select that loads all 16 entries in
+   that look up tables (the six table-lookup kernels at both of their
+   threads a lane, `cuda_ec.GROUPS`) has a select that loads all 16 entries in
    straight-line code with no load predicated, and prints how many selects
    it checked;
-2c. the multi-process hub auction (`runtime/party.py`) at 20x8: 20 party
+2c. the multi-process hub auction (`runtime/party.py`) at 20x2: 20 party
    processes on the card, spawned after this process built the native hub
    (make) and the kernels; bids from the seed with their top bit set
-   (Stage1, then Stage2).  c is cut from 32 to 8 for the time limit: the
-   other 24 steps repeat the same shapes.  Every party must return (the
+   (Stage1, then Stage2).  c is cut from 32 to 2 for the time limit: the
+   other 30 steps repeat the same shapes.  Every party must return (the
    plaintext maximum, True), the hub's meters must equal the formula of
    tests/test_native_auction.py exactly, every party must report `cuda`,
    and in every party `mul_comb`, `dual_mul`, `quad_mul` and
@@ -28,17 +28,29 @@ package, in these phases; any failure raises and the exit code is non-zero:
    hub); it prints the wall time, the slowest party's time, the meters
    and the parties' launches by kernel and lane count, and every lane
    count the parties launched joins phase 3's parity list;
+2d. the bidder mesh (`parallel/`, `run_auction(mesh=...)`): two spawned
+   ranks on the card, in a gloo group, run a verified fused SEAL auction
+   and a CCS22 auction at 20x8 on a mesh of two, and one spawned rank in
+   an NCCL group runs the SEAL auction on a mesh of one, while this
+   process runs both unsharded (tests/torch_mesh_cases.py; the ranks
+   start after this process built the kernels).  Every rank's outcome and
+   whole board must equal the unsharded run's bit for bit, and each
+   rank's kernels must launch at the unsharded lane counts divided by the
+   mesh size, as often; it prints each rank's wall, backend and launches
+   by kernel and lane count, and the ranks' lane counts join phase 3's
+   parity list;
 3. the full kernel validator (the 64-window ladders, `mul_base`, the GLV
    dispatch and `pt_add`, edge lanes against the host oracle) with the
    launch counts set to 0 before it and read after it: every kernel must
    have run; then each kernel row against its plain PyTorch version on the
    card (exactly: integer limbs, tolerance 0) and sampled lanes against the
-   host oracle: `pt_add` at 4096 lanes, and the seven rows of the six group
-   kernels (`dual_mul` at 33 and at 64 windows) at 1, 15, 17, 300 and 2053
-   lanes and at the lane counts the auctions (fused and metered), the
-   hub's parties (phase 2c), the validator and the ladder bench launch
-   them at, each lane count once, each at both of its threads a lane (8
-   and 4; `mul_comb` 8 and 2);
+   host oracle: the eight rows of the seven group kernels (`dual_mul` at
+   33 and at 64 windows) at 1, 15, 17, 300 and 2053 lanes and at the lane
+   counts the auctions (fused and metered), the hub's parties (phase 2c),
+   the mesh's ranks (2d), the validator and the ladder bench launch them
+   at (`pt_add` at 8, 2048 and 20480, with the validator's special lanes
+   P + P, P + (-P), P + infinity and infinity + Q), each lane count once,
+   each at both of its threads a lane (8 and 4; `mul_comb` 8 and 2);
 4. verified SEAL auctions at 20x32 and 128x8 bidders x bits from a seed
    (the fused driver; the second cut from 128x32 to 128x8 to leave time
    for phases 2c and 6b): each must verify and find the plaintext maximum,
@@ -54,7 +66,7 @@ package, in these phases; any failure raises and the exit code is non-zero:
    `dual_mul` and `quad_mul` must rise and no other kernel may run (the
    protocol has no verification phase); the 20x32 auction's steps run once
    more with every host synchronization an error; then the setup's SHA-256
-   alone at 64x32;
+   alone at 20x32 (cut from 64x32 for the time limit);
 5b. the role-metered CCS22 auction at 20x32 from the fused 20x32 run's
    draws: it must find the plaintext maximum and publish the fused run's
    board (the OT messages G, H, C0, C1 as SEC1 bytes, the rest limb for
@@ -68,27 +80,37 @@ package, in these phases; any failure raises and the exit code is non-zero:
    the checks run), each tampered auction must return verified=False and
    max_bid=-1 at the check where the JAX loop stopped;
 6b. NIST P-256 on the card: a fused verified SEAL auction and a fused
-   CCS22 auction at 20x4 (c cut from 32 to 4 for the time limit) from the
+   CCS22 auction at 20x2 (c cut from 32 to 2 for the time limit) from the
    seed; each must find the plaintext maximum (SEAL verified), and no CUDA
    kernel may launch (P-256 runs the generic plain path); it prints the
    phase times;
 7. tools/bench_ladder_torch.py at 8192 lanes (64-window ladders beside
-   their GLV forms);
-8. per kernel row, at a shape the 128x8 SEAL auction gives it (2048 lanes
-   for the kernels that only the validator reaches), and the group kernels
-   at the other auctions' shapes too, the metered drivers' included
-   (`mul_comb` at 20-20480 lanes, `dual_mul` at 20, 40, 1280 and 4096,
-   `quad_mul` at 20, 160, 320, 2048 and 3840, `base_mul_add_glv` at 40
-   and 1280; `scalar_mul` and `base_mul_add` at the validator's 8; the
-   hub parties' `mul_comb` at 4 and 40, `dual_mul` at 2, `quad_mul` at 8,
-   16, 32 and 960): the kernel's time (CUDA events), the plain
-   version's time, both outputs compared exactly (`max_abs_err` must be 0),
-   the bound from the 32-bit integer multiplies or the bytes it needs, and
+   their GLV forms); then the port's tools: tools/run_sweep_torch.py over
+   the first 4 pairs of params.txt, in a process of its own that runs
+   beside phases 6 and 6b (each verified SEAL and CCS22 auction must find
+   the maximum), and through their `main` tools/profile_phases_torch.py
+   (one timed call a program), tools/bench_seal_parts_torch.py and
+   tools/demo_native_board_torch.py at 20x4 (each must exit 0; the demo
+   must launch no kernel);
+8. the kernels line: per kernel row, at a shape the 128x8 SEAL auction
+   gives it (2048 lanes for the kernels that only the validator reaches),
+   and the group kernels at the other auctions' shapes too, the metered
+   drivers' included (`mul_comb` at 20-20480 lanes, `dual_mul` at 20, 40,
+   1280 and 4096, `quad_mul` at 20, 160, 320, 2048 and 3840,
+   `base_mul_add_glv` at 40 and 1280; `scalar_mul` and `base_mul_add` at
+   the validator's 8; `pt_add` at 8 and 20480; the hub parties' and the
+   mesh ranks' own lane counts): the kernel's time (CUDA events around 5 launches,
+   which holds the wrapper's host time where that is longer: pt_add's
+   device time is tools/time_kernels_torch.py's `device_ms`), the plain
+   version's time, both outputs compared exactly (`max_abs_err` must be
+   0), all taken in phase 3 on its inputs; the
+   bound from the 32-bit integer multiplies or the bytes it needs, and
    ptxas' registers, stack and spills with the threads a lane, threads a
    block and shared memory a block of the launch.
 
-Prints its total time, a `kernels` JSON line, the nvidia-smi line, and last
-the line {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when no
+Each log line starts with the seconds since the start.  Prints its total
+time, a `kernels` JSON line, the nvidia-smi line, and last the line
+{"ok": true, "device": {...}}.  Exits non-zero, printing no result, when no
 CUDA device is available or the package is missing.
 """
 
@@ -105,12 +127,17 @@ import time
 DEVICE = "cuda"
 SEED = 20261016
 AUCTIONS = ((20, 32), (128, 8))
-HUB = (20, 8)            # party processes x bits; c cut from 32 for time
+HUB = (20, 2)            # party processes x bits; c cut from 32 for time
 HUB_KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv")
-P256_AUCTION = (20, 4)   # bidders x bits; c cut from 32 for time
+P256_AUCTION = (20, 2)   # bidders x bits; c cut from 32 for time
 CCS22_AUCTIONS = ((20, 32), (64, 32))
+MESH = (20, 8)           # bidders x bits of the mesh phase's auctions
+# (backend, ranks, protocols) of the mesh phase: two ranks on one card
+# need gloo (NCCL refuses two ranks on one device); NCCL runs a mesh of one
+MESH_RUNS = (("gloo", 2, ("seal", "ccs22")), ("nccl", 1, ("seal",)))
+TOOLS_AUCTION = (20, 4)  # the phase-profile, SEAL-parts and demo tools
+SWEEP_PAIRS = 4          # the first pairs of params.txt
 BENCH_LANES = 8192
-CHECK_LANES = 4096
 SAMPLED = 8
 # Peak 32-bit integer multiply rate of an H100 SXM: 64 results per clock per
 # SM for 32-bit integer multiply(-add) at compute capability 9.0 (CUDA C++
@@ -131,13 +158,12 @@ REPLACES = {
     "pt_add": "privacy_auction_tpu/ops/pallas_ec.py:399",
 }
 # the kernel rows: dual_mul serves two, at 33 windows (GLV halves, the
-# protocols) and at 64 (full scalars, the validator)
+# protocols) and at 64 (full scalars, the validator); every row is a group
+# kernel (several threads a lane on csrc/ec_group.cuh)
 ROWS = tuple(REPLACES)
 SEAL_KERNELS = ROWS[:4]
 CCS22_KERNELS = ("mul_comb", "dual_mul", "quad_mul")
-# the rows of the group kernels (several threads a lane, csrc/ec_group.cuh)
-GROUP_ROWS = ROWS[:-1]
-SELECT_VARIANTS = 12    # the six group kernels, each at both of its G
+SELECT_VARIANTS = 12    # the six table-lookup kernels, each at both G
 RAGGED_LANES = (1, 15, 17, 300, 2053)   # part of a block, ragged blocks
 # the lane counts the auctions launch each group row at: mul_comb at SEAL
 # 20x32 (round one 4nc, commit 5nc) and 128x8, and at CCS22 20x32 and
@@ -157,11 +183,13 @@ AUCTION_LANES = {
     "quad_mul": (20, 160, 320, 640, 960, 1024, 2048, 2560, 3840, 4096, 6144),
     "base_mul_add_glv": (40, 1280, 2048),
     "scalar_mul": (8, 8192), "base_mul_add": (8, 8192),
+    "pt_add": (8, 2048, 20480),
 }
 SEAL_METERED = (20, 8)   # the role-metered SEAL auction (phase 4b)
 METERED = (20, 32)       # the role-metered CCS22 auction (phase 5b)
 # the group rows' timed shapes beside their rows (the 128x8 auction's):
-# the other auctions' shapes, the metered drivers' and the hub's included
+# the other auctions' shapes and the metered drivers' (the hub's and the
+# mesh's lane counts are added from their runs)
 GROUP_TIMED = (tuple(("mul_comb", n) for n in AUCTION_LANES["mul_comb"]
                      if n != 4 * AUCTIONS[-1][0] * AUCTIONS[-1][1])
                + (("dual_mul", 20), ("dual_mul", 40), ("dual_mul", 1280),
@@ -169,15 +197,15 @@ GROUP_TIMED = (tuple(("mul_comb", n) for n in AUCTION_LANES["mul_comb"]
                   ("quad_mul", 320), ("quad_mul", 2048), ("quad_mul", 3840),
                   ("base_mul_add_glv", 40), ("base_mul_add_glv", 1280),
                   ("scalar_mul", 8), ("base_mul_add", 8))
-               # the hub parties' own lane counts at 20x8 (their one-lane
-               # messages and the verifiers' commit check, 6nc)
-               + (("mul_comb", 4), ("mul_comb", 40), ("dual_mul", 2),
-                  ("quad_mul", 8), ("quad_mul", 16), ("quad_mul", 32),
-                  ("quad_mul", 960)))
+               + (("pt_add", 8), ("pt_add", 20480)))
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg):
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the start."""
+    print(f"{time.perf_counter() - _T0:7.1f} {msg}", flush=True)
 
 
 class MemorySampler:
@@ -286,6 +314,159 @@ def hub_phase(n: int, c: int, device, memory=None):
     return hub_launches, hub_lanes
 
 
+def _tests_module(name):
+    tests = str(pathlib.Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module(name)
+
+
+def mesh_phase(n: int, c: int, device, runs=MESH_RUNS):
+    """Phase 2d: SEAL (verified, fused) and CCS22 at n x c on each
+    (backend, ranks, protocols) mesh of `runs` in spawned ranks on
+    `device`, all meshes at once, and meanwhile unsharded in this process;
+    every rank must equal the unsharded run and launch each kernel at the
+    unsharded lane counts / ranks.  Returns the first mesh's rank-0
+    launches by (kernel, lanes), summed over its auctions, and every
+    (kernel, lanes) a rank launched."""
+    MC = _tests_module("torch_mesh_cases")
+    m_rng = random.Random(SEED + 2)
+    jobs = {"seal": {"protocol": "seal", "c": c, "seed": SEED + 2,
+                     "verify": True,
+                     "bids": [m_rng.randrange(1 << c) for _ in range(n)]},
+            "ccs22": {"protocol": "ccs22", "c": c, "seed": SEED + 3,
+                      "eval_id": m_rng.randrange(n),
+                      "bids": [m_rng.randrange(1 << c) for _ in range(n)]}}
+    t0 = time.perf_counter()
+    meshes = [(backend, ranks, names,
+               MC.Ranks(ranks, [jobs[k] for k in names], backend, device))
+              for backend, ranks, names in runs]
+    want = {}
+    for name, job in jobs.items():
+        want[name] = MC.run_job(job, device)
+        if want[name]["max_bid"] != max(job["bids"]) or \
+                want[name]["verified"] is False:
+            raise AssertionError(f"mesh {name} {n}x{c} unsharded: max_bid "
+                                 f"{want[name]['max_bid']}, want "
+                                 f"{max(job['bids'])}")
+        log(f"[mesh {name} {n}x{c}] unsharded in this process: max_bid="
+            f"{want[name]['max_bid']}, wall {want[name]['wall']:.3f} s")
+    first, seen = None, set()
+    for backend, ranks, names, mesh in meshes:
+        results = mesh.results()
+        wall = time.perf_counter() - t0
+        for r in results:
+            for name, got in zip(names, r["runs"]):
+                ref = want[name]
+                if r["backend"] != backend or got["max_bid"] != ref["max_bid"] \
+                        or got["verified"] != ref["verified"] \
+                        or got["deciding"] != ref["deciding"] \
+                        or not MC.same_board(got["board"], ref["board"]):
+                    raise AssertionError(
+                        f"mesh {name} {n}x{c}, rank {r['rank']} of {ranks} "
+                        f"({r['backend']}): max_bid {got['max_bid']}, "
+                        f"deciding {got['deciding']}, not the unsharded "
+                        "run's outcome and board")
+                lanes = {(k, l // ranks): v
+                         for (k, l), v in ref["launch_lanes"].items()}
+                if (any(l % ranks for _, l in ref["launch_lanes"])
+                        or got["launch_lanes"] != lanes):
+                    raise AssertionError(
+                        f"mesh {name} {n}x{c}, rank {r['rank']} of {ranks}: "
+                        f"launches {sorted(got['launch_lanes'].items())}, "
+                        f"want the unsharded lanes / {ranks}: "
+                        f"{sorted(lanes.items())}")
+                seen |= set(got["launch_lanes"])
+                log(f"[mesh {name} {n}x{c}] rank {r['rank']} of {ranks} "
+                    f"({r['backend']}, {r['info']['platform']}): the "
+                    f"unsharded board and max_bid={got['max_bid']}, wall "
+                    f"{got['wall']:.3f} s; launches by kernel@lanes "
+                    + json.dumps({f"{k}@{l}": v for (k, l), v in
+                                  sorted(got["launch_lanes"].items())}))
+        log(f"[mesh] {ranks} {backend} rank(s), {', '.join(names)}: "
+            f"{wall:.1f} s from the spawn to the last result (the meshes "
+            "run at once, beside this process's unsharded runs)")
+        if first is None:
+            first = {}
+            for got in results[0]["runs"]:
+                for key, v in got["launch_lanes"].items():
+                    first[key] = first.get(key, 0) + v
+    return first, seen
+
+
+class Sweep:
+    """tools/run_sweep_torch.py over the first `pairs` pairs of params.txt
+    on `device`, in a process of its own that runs beside phases 6 and 6b
+    (its log in build/sweep.log); `result()` waits for it and fails unless
+    it exits 0 with every pair passed, `stop()` kills it if it still
+    runs."""
+
+    def __init__(self, device, pairs=SWEEP_PAIRS):
+        import torch
+
+        root = pathlib.Path(__file__).resolve().parent
+        params = root / "build" / "sweep_params.txt"
+        params.parent.mkdir(exist_ok=True)
+        params.write_text("\n".join(
+            (root / "params.txt").read_text().splitlines()[:pairs]) + "\n")
+        self.argv = ["--params", str(params), "--device",
+                     torch.device(device).type]
+        self.log_path = root / "build" / "sweep.log"
+        self._log = open(self.log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(root / "tools" / "run_sweep_torch.py"),
+             *self.argv], stdout=self._log, stderr=subprocess.STDOUT, cwd=root)
+
+    def result(self, timeout=900):
+        rc = self.proc.wait(timeout=timeout)
+        self._log.close()
+        text = self.log_path.read_text()
+        for line in text.splitlines():
+            log(f"[sweep] {line}")
+        if rc != 0 or "# PASS" not in text:
+            raise AssertionError(f"tools/run_sweep_torch.py exited with {rc}")
+        log(f"[tools] tools/run_sweep_torch.py {' '.join(self.argv)}: exit 0, "
+            f"{time.perf_counter() - self.t0:.1f} s from its start (beside "
+            "phases 6 and 6b)")
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._log.close()
+
+
+def tools_phase(device, auction=TOOLS_AUCTION):
+    """The port's tools through their `main`, on `device`: the phase
+    profile, the SEAL parts and the hub demo at `auction`; each must exit
+    0, and the demo launch no kernel (the sweep: `Sweep`)."""
+    import torch
+
+    from privacy_auction_tpu_torch.ops import cuda_ec
+
+    tools = str(pathlib.Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    n, c = auction
+    dev = ["--device", torch.device(device).type]
+    for name, argv in (
+            ("profile_phases_torch", [str(n), str(c), "--reps", "1"] + dev),
+            ("bench_seal_parts_torch", [str(n), str(c)] + dev),
+            ("demo_native_board_torch", None)):
+        mod = importlib.import_module(name)
+        cuda_ec.reset_launches()
+        t0 = time.perf_counter()
+        rc = mod.main(n, c, SEED) if argv is None else mod.main(argv)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"tools/{name}.py exited with {rc}")
+        if argv is None and any(cuda_ec.launches.values()):
+            raise AssertionError(f"tools/{name}.py launched kernels")
+        log(f"[tools] tools/{name}.py {' '.join(argv or [str(n), str(c)])}: "
+            f"exit 0 in {wall:.1f} s")
+
+
 def p256_phase(n: int, c: int, device):
     """Phase 6b: fused SEAL (verified) and CCS22 auctions on P-256 at n x c
     on `device`; no kernel may launch."""
@@ -333,7 +514,6 @@ def p256_phase(n: int, c: int, device):
 
 
 def main() -> int:
-    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -393,6 +573,9 @@ def main() -> int:
     # ---- 2c. the hub auction: one party process a bidder, all on the card --------
     hub_launches, hub_lanes = hub_phase(*HUB, DEVICE, MemorySampler)
 
+    # ---- 2d. the bidder mesh: spawned ranks, gloo and NCCL -------------------
+    mesh_lanes, mesh_seen = mesh_phase(*MESH, DEVICE)
+
     # ---- 3. validator (this slice's path) and parity ---------------------------
     cuda_ec.reset_launches()
     validate_kernels(C, lanes=8, seed=SEED, device=dev)
@@ -419,97 +602,180 @@ def main() -> int:
         return ks, ec.mul_base(C, k)
 
     def kernel_inputs(name, lanes):
-        """(kernel call, plain call, host oracle for lane i) on random data;
-        the GLV kernels get 132-bit scalars, as the split gives them, the
-        64-window ladders full scalars.  The kernel call of a group row
-        takes a launch shape (`shape=None`: launch_shape's)."""
-        g0 = C.tensor("g0_tables", dev)
+        """(inputs, kernel call, plain call, host oracle for lane i) on
+        random data over `lanes` lanes: the inputs are lane-major tensors,
+        the calls take them (or their first l lanes, each lane being
+        computed on its own) and the kernel call a launch shape too
+        (`shape=None`: launch_shape's).  The GLV kernels get 132-bit
+        scalars, as the split gives them, the 64-window ladders full
+        scalars."""
         if name == "mul_comb":
             ks, k = scalars(lanes)
             table = C.tensor("comb_table", dev)
-            return ((lambda shape=None: cuda_ec.mul_comb(C, table, k, shape)),
-                    (lambda: ec.mul_comb_plain(C, table, k)),
+            return ([k],
+                    lambda k, shape=None: cuda_ec.mul_comb(C, table, k, shape),
+                    lambda k: ec.mul_comb_plain(C, table, k),
                     lambda i: host.mul(ks[i], host.g))
         if name == "pt_add":
-            (a, P), (b, Q) = points(lanes), points(lanes)
-            return ((lambda: cuda_ec.pt_add(C, P, Q)), (lambda: ec.add(C, P, Q)),
-                    lambda i: host.mul(a[i] + b[i], host.g))
+            (_, P), (_, Q) = points(lanes), points(lanes)
+            if lanes >= 5:
+                # the validator's special lanes: P + P, P + (-P), P + inf,
+                # inf + Q
+                Q[1] = P[1]
+                Q[2] = ec.neg(C, P[2])
+                Q[3] = ec.infinity(dev)
+                P[4] = ec.infinity(dev)
+            return ([P, Q],
+                    lambda P, Q, shape=None: cuda_ec.pt_add(C, P, Q, shape),
+                    lambda P, Q: ec.add(C, P, Q),
+                    lambda i: host.add(ec.decode_host_point(C, P[i]),
+                                       ec.decode_host_point(C, Q[i])))
         if name in ("scalar_mul", "base_mul_add", "dual_mul_64"):
             (a, P), (b, Q) = points(lanes), points(lanes)
             (ss, s), (ts, t) = scalars(lanes), scalars(lanes)
             if name == "scalar_mul":
-                return ((lambda shape=None: cuda_ec.scalar_mul(C, P, s,
-                                                               shape=shape)),
-                        (lambda: ec.scalar_mul_windows_plain(C, P, s)),
+                return ([P, s],
+                        lambda P, s, shape=None: cuda_ec.scalar_mul(
+                            C, P, s, shape=shape),
+                        lambda P, s: ec.scalar_mul_windows_plain(C, P, s),
                         lambda i: host.mul(a[i] * ss[i], host.g))
             if name == "base_mul_add":
                 g0b = C.tensor("g0_table", dev)
-                return ((lambda shape=None: cuda_ec.base_mul_add(C, s, P, t, g0b,
-                                                                 shape)),
-                        (lambda: ec.base_mul_add_plain(C, s, P, t)),
+                return ([s, P, t],
+                        lambda s, P, t, shape=None: cuda_ec.base_mul_add(
+                            C, s, P, t, g0b, shape),
+                        lambda s, P, t: ec.base_mul_add_plain(C, s, P, t),
                         lambda i: host.mul(ss[i] + a[i] * ts[i], host.g))
-            return ((lambda shape=None: cuda_ec.dual_mul(C, P, s, Q, t,
-                                                         COMB_WINDOWS, shape)),
-                    (lambda: ec.dual_mul_windows_plain(C, P, s, Q, t,
-                                                       COMB_WINDOWS)),
+            return ([P, s, Q, t],
+                    lambda *x, shape=None: cuda_ec.dual_mul(
+                        C, *x, COMB_WINDOWS, shape),
+                    lambda *x: ec.dual_mul_windows_plain(C, *x, COMB_WINDOWS),
                     lambda i: host.mul(a[i] * ss[i] + b[i] * ts[i], host.g))
         nsrc = {"dual_mul": 2, "quad_mul": 4, "base_mul_add_glv": 2}[name]
         srcs = [points(lanes) + scalars(lanes, 132) for _ in range(nsrc)]
         args = [t for a, P, s, k in srcs for t in (P, k)]
+
+        def ladder_want(i):
+            return host.mul(sum(a[i] * s[i] for a, _, s, _ in srcs), host.g)
         if name == "dual_mul":
-            return ((lambda shape=None: cuda_ec.dual_mul(C, *args, GLV_WINDOWS,
-                                                         shape)),
-                    (lambda: ec.dual_mul_windows_plain(C, *args, GLV_WINDOWS)),
-                    lambda i: host.mul(sum(a[i] * s[i] for a, _, s, _ in srcs),
-                                       host.g))
+            return (args,
+                    lambda *x, shape=None: cuda_ec.dual_mul(
+                        C, *x, GLV_WINDOWS, shape),
+                    lambda *x: ec.dual_mul_windows_plain(C, *x, GLV_WINDOWS),
+                    ladder_want)
         if name == "quad_mul":
-            return ((lambda shape=None: cuda_ec.quad_mul(C, *args, GLV_WINDOWS,
-                                                         shape)),
-                    (lambda: ec.quad_mul_windows_plain(C, *args, GLV_WINDOWS)),
-                    lambda i: host.mul(sum(a[i] * s[i] for a, _, s, _ in srcs),
-                                       host.g))
+            return (args,
+                    lambda *x, shape=None: cuda_ec.quad_mul(
+                        C, *x, GLV_WINDOWS, shape),
+                    lambda *x: ec.quad_mul_windows_plain(C, *x, GLV_WINDOWS),
+                    ladder_want)
         ss1, s1 = scalars(lanes, 132)
         ss2, s2 = scalars(lanes, 132)
         flags = torch.randint(0, 2, (lanes, 2), generator=gen).to(dev)
         fl = flags.cpu().tolist()
         lam = C.glv.lam
+        g0 = C.tensor("g0_tables", dev)
 
         def want(i):
             e = ((-1) ** fl[i][0] * ss1[i] + (-1) ** fl[i][1] * ss2[i] * lam
                  + sum(a[i] * s[i] for a, _, s, _ in srcs))
             return host.mul(e % host.n, host.g)
-        return ((lambda shape=None: cuda_ec.base_mul_add_glv(
-                    C, *args, s1, s2, flags, g0, GLV_WINDOWS, shape)),
-                (lambda: ec.base_mul_add_glv_plain(C, *args, s1, s2, flags,
-                                                   GLV_WINDOWS)),
+        return (args + [s1, s2, flags],
+                lambda *x, shape=None: cuda_ec.base_mul_add_glv(
+                    C, *x, g0, GLV_WINDOWS, shape),
+                lambda *x: ec.base_mul_add_glv_plain(C, *x, GLV_WINDOWS),
                 want)
 
-    parity = [("pt_add", CHECK_LANES)]
-    parity += [(name, lanes) for name in GROUP_ROWS
-               for lanes in sorted(set(RAGGED_LANES + AUCTION_LANES[name])
-                                   | {n for k, n in hub_lanes if k == name})]
-    for name, lanes in parity:
-        run_k, run_p, want = kernel_inputs(name, lanes)
+    # the timed rows (phase 8): each row at a shape the 128x8 auction gives
+    # it, the group rows at the other paths' shapes, the mesh ranks' too
+    n, c = AUCTIONS[-1]
+    shapes = {
+        "mul_comb": 4 * c * n,       # round-1 keys and nonce commitments
+        "dual_mul": 2 * c * n,       # Y^x and R^x for every step
+        "quad_mul": 16 * n,          # one Stage2 proof pass
+        "base_mul_add_glv": 2 * c * n,   # round-1 PoKDLog verification
+        # the validator's kernels, at dual_mul's shape, beside their GLV forms
+        "scalar_mul": 2 * c * n, "dual_mul_64": 2 * c * n,
+        "base_mul_add": 2 * c * n, "pt_add": 2 * c * n,
+    }
+    windows = {"dual_mul": GLV_WINDOWS, "quad_mul": GLV_WINDOWS,
+               "base_mul_add_glv": GLV_WINDOWS, "scalar_mul": COMB_WINDOWS,
+               "dual_mul_64": COMB_WINDOWS, "base_mul_add": COMB_WINDOWS}
+    # bytes each input is read once and the output written once: int64
+    # points 384 B, scalars 128 B, sign flags 16 B; the constant tables once
+    bytes_per_lane = {"mul_comb": 128 + 384, "dual_mul": 2 * 512 + 384,
+                      "quad_mul": 4 * 512 + 384,
+                      "base_mul_add_glv": 2 * 512 + 2 * 128 + 16 + 384,
+                      "scalar_mul": 512 + 384, "dual_mul_64": 2 * 512 + 384,
+                      "base_mul_add": 384 + 2 * 128 + 384,
+                      "pt_add": 2 * 384 + 384}
+    table_bytes = {"mul_comb": 64 * 16 * 384, "base_mul_add_glv": 2 * 16 * 384,
+                   "base_mul_add": 16 * 384}
+    timed = [(name, shapes[name], False) for name in ROWS]
+    timed += [(name, lanes, True) for name, lanes in GROUP_TIMED]
+    # and the lane counts of the hub's parties and the mesh's ranks
+    timed += [(name, lanes, True)
+              for name, lanes in sorted(set(hub_lanes) | set(mesh_lanes))
+              if (name, lanes) not in GROUP_TIMED
+              and (name, lanes) != (name, shapes.get(name))]
+    timing = {}
+
+    # each row at every lane count against its plain version: one input
+    # set a row, at its most lanes, one plain run over it (each lane is
+    # computed on its own, so its first l lanes are the reference at l
+    # lanes), the kernel on the first l lanes at each G; the timed rows
+    # timed on those inputs, the plain version too (launch_shape's G)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    reps = 5
+    n_cases = 0
+    for name in ROWS:
         kernel = name.removesuffix("_64")
-        if name in GROUP_ROWS:
-            outs = {g: run_k(cuda_ec.launch_shape(kernel, lanes, group=g))
+        counts = sorted(set(RAGGED_LANES + AUCTION_LANES[name])
+                        | {n for k, n in hub_lanes if k == name}
+                        | {n for k, n in mesh_seen if k == name}
+                        | {n for k, n, _ in timed if k == name})
+        xs, run_k, run_p, want = kernel_inputs(name, counts[-1])
+        ref_all = run_p(*xs)
+        for lanes in counts:
+            cut = [x[:lanes] for x in xs]
+            outs = {g: run_k(*cut, shape=cuda_ec.launch_shape(kernel, lanes,
+                                                              group=g))
                     for g in cuda_ec.GROUPS[kernel]}
-        else:
-            outs = {1: run_k()}
-        ref = run_p()
-        torch.cuda.synchronize()
-        for g, got in outs.items():
-            if not torch.equal(got, ref):
-                bad = int((got != ref).any(-1).any(-1).sum())
-                raise AssertionError(f"{name} ({g} threads a lane): {bad} of "
-                                     f"{lanes} lanes differ from the plain "
-                                     "version")
-        for i in rng.sample(range(lanes), min(SAMPLED, lanes)):
-            if ec.decode_host_point(C, ref[i]) != want(i):
-                raise AssertionError(f"{name}: lane {i} disagrees with host_curve")
-        log(f"[parity] {name}: {lanes} lanes equal the plain version with "
-            f"{' and '.join(map(str, outs))} threads a lane, "
-            f"{min(SAMPLED, lanes)} sampled lanes equal host_curve")
+            ref = ref_all[:lanes]
+            torch.cuda.synchronize()
+            for g, got in outs.items():
+                if not torch.equal(got, ref):
+                    bad = int((got != ref).any(-1).any(-1).sum())
+                    raise AssertionError(f"{name} ({g} threads a lane): {bad} "
+                                         f"of {lanes} lanes differ from the "
+                                         "plain version")
+            sampled = rng.sample(range(lanes), min(SAMPLED, lanes))
+            if name == "pt_add":
+                sampled = sorted(set(sampled) | set(range(min(5, lanes))))
+            for i in sampled:
+                if ec.decode_host_point(C, ref[i]) != want(i):
+                    raise AssertionError(f"{name}: lane {i} disagrees with "
+                                         "host_curve")
+            n_cases += 1
+            log(f"[parity] {name}: {lanes} lanes equal the plain version with "
+                f"{' and '.join(map(str, outs))} threads a lane, "
+                f"{len(sampled)} sampled lanes equal host_curve")
+            if any(k == name and n == lanes for k, n, _ in timed):
+                e0.record()
+                for _ in range(reps):
+                    got = run_k(*cut)
+                e1.record()
+                torch.cuda.synchronize()
+                ms = e0.elapsed_time(e1) / reps
+                e0.record()
+                plain = run_p(*cut)
+                e1.record()
+                torch.cuda.synchronize()
+                timing[(name, lanes)] = {
+                    "ms": ms, "plain_ms": e0.elapsed_time(e1),
+                    "max_abs_err": max(int((got - ref).abs().max()),
+                                       int((plain - ref).abs().max()))}
+    log(f"[parity] {n_cases} cases, each equal to its plain version")
 
     def by_lanes(counts):
         return {f"{k}@{n}": v for (k, n), v in sorted(counts.items())}
@@ -615,10 +881,10 @@ def main() -> int:
             log(f"[ccs22 {n}x{c}] the {c} steps ran with host syncs made "
                 "errors: none occurred, the same bits were announced")
 
-    # the setup's SHA-256 alone at the larger size: the parties' hashes
-    # (4c scalars each, one batch) and the evaluator's (its own secrets and
-    # all n*c OT betas, one message)
-    n, c = CCS22_AUCTIONS[-1]
+    # the setup's SHA-256 alone: the parties' hashes (4c scalars each, one
+    # batch) and the evaluator's (its own secrets and all n*c OT betas, one
+    # message)
+    n, c = CCS22_AUCTIONS[0]
     for what, shape in (("parties'", (n, 4 * c * 32)),
                         ("evaluator's", (4 * c * 32 + n * c * 32,))):
         msg = torch.randint(0, 256, shape, generator=torch.Generator()
@@ -674,47 +940,53 @@ def main() -> int:
     log(f"[ccs22 metered {n}x{c}] launches by kernel@lanes "
         f"{json.dumps(by_lanes(cuda_ec.launch_lanes))}")
 
-    # ---- 6. a tampered PoKDLog is rejected ----------------------------------------
-    n_t = 8
-    ids = torch.arange(n_t, device=dev)
-    pub, _ = seal.round_one_batch(C, torch.Generator().manual_seed(SEED), n_t, 1,
-                                  ids)
-    ok = seal.verify_round_one_batch(C, pub, ids)
-    rho = pub.pok_x.rho.clone()
-    rho[0, 3, 0] ^= 1
-    bad = seal.verify_round_one_batch(
-        C, pub._replace(pok_x=PoKDLog(pub.pok_x.eps, rho)), ids)
-    expect = torch.ones_like(bad)
-    expect[0, 3] = False
-    if not bool(ok.all()) or not torch.equal(bad, expect):
-        raise AssertionError(f"tamper check: honest {ok.tolist()}, "
-                             f"tampered {bad.tolist()}")
-    log("[tamper] the PoKDLog with a flipped rho limb is rejected, its "
-        f"{n_t - 1} neighbours pass")
+    # ---- 6-6b run beside the sweep of the tools phase (a process of its own)
+    sweep = Sweep(DEVICE)
+    try:
+        # ---- 6. a tampered PoKDLog is rejected ------------------------------------
+        n_t = 8
+        ids = torch.arange(n_t, device=dev)
+        pub, _ = seal.round_one_batch(
+            C, torch.Generator().manual_seed(SEED), n_t, 1, ids)
+        ok = seal.verify_round_one_batch(C, pub, ids)
+        rho = pub.pok_x.rho.clone()
+        rho[0, 3, 0] ^= 1
+        bad = seal.verify_round_one_batch(
+            C, pub._replace(pok_x=PoKDLog(pub.pok_x.eps, rho)), ids)
+        expect = torch.ones_like(bad)
+        expect[0, 3] = False
+        if not bool(ok.all()) or not torch.equal(bad, expect):
+            raise AssertionError(f"tamper check: honest {ok.tolist()}, "
+                                 f"tampered {bad.tolist()}")
+        log("[tamper] the PoKDLog with a flipped rho limb is rejected, its "
+            f"{n_t - 1} neighbours pass")
 
-    # the metered loop's honest control and tamper cases, against the JAX
-    # package's golden vectors
-    import pytest
-    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
-    import torch_metered_cases as M
+        # the metered loop's honest control and tamper cases, against the JAX
+        # package's golden vectors
+        import pytest
+        M = _tests_module("torch_metered_cases")
 
-    t0 = time.perf_counter()
-    with pytest.MonkeyPatch.context() as mp:
-        M.check_honest(mp, DEVICE)
-    log(f"[tamper] the honest control at {M.SEAL_BIDS}, c = {M.SEAL_C} "
-        "verifies and matches the JAX package's deciding bits, bytes, hook "
-        f"calls and checks ({time.perf_counter() - t0:.3f} s)")
-    for case in M.TAMPER_CASES:
         t0 = time.perf_counter()
         with pytest.MonkeyPatch.context() as mp:
-            checks = M.check_tamper(case, mp, DEVICE)
-        name, step, _ = checks[-1]
-        log(f"[tamper] {case}: verified=False, max_bid=-1 at "
-            f"{M.CHECKS[name]} (step {step}), as the JAX package "
-            f"({time.perf_counter() - t0:.3f} s)")
+            M.check_honest(mp, DEVICE)
+        log(f"[tamper] the honest control at {M.SEAL_BIDS}, c = {M.SEAL_C} "
+            "verifies and matches the JAX package's deciding bits, bytes, hook "
+            f"calls and checks ({time.perf_counter() - t0:.3f} s)")
+        for case in M.TAMPER_CASES:
+            t0 = time.perf_counter()
+            with pytest.MonkeyPatch.context() as mp:
+                checks = M.check_tamper(case, mp, DEVICE)
+            name, step, _ = checks[-1]
+            log(f"[tamper] {case}: verified=False, max_bid=-1 at "
+                f"{M.CHECKS[name]} (step {step}), as the JAX package "
+                f"({time.perf_counter() - t0:.3f} s)")
 
-    # ---- 6b. P-256 on the generic plain path -----------------------------------------
-    p256_phase(*P256_AUCTION, dev)
+        # ---- 6b. P-256 on the generic plain path ----------------------------------
+        p256_phase(*P256_AUCTION, dev)
+
+        sweep.result()
+    finally:
+        sweep.stop()
 
     # ---- 7. the ladder bench ------------------------------------------------------
     spec = importlib.util.spec_from_file_location(
@@ -724,53 +996,13 @@ def main() -> int:
     spec.loader.exec_module(bench_mod)
     log("[bench] tools/bench_ladder_torch.py --lanes "
         f"{BENCH_LANES}: {json.dumps(bench_mod.bench([BENCH_LANES], device=dev)[0])}")
+    tools_phase(DEVICE)
 
-    # ---- 8. kernel times at the 128x8 auction's shapes ------------------------------
-    n, c = AUCTIONS[-1]
-    shapes = {
-        "mul_comb": 4 * c * n,       # round-1 keys and nonce commitments
-        "dual_mul": 2 * c * n,       # Y^x and R^x for every step
-        "quad_mul": 16 * n,          # one Stage2 proof pass
-        "base_mul_add_glv": 2 * c * n,   # round-1 PoKDLog verification
-        # the validator's kernels, at dual_mul's shape, beside their GLV forms
-        "scalar_mul": 2 * c * n, "dual_mul_64": 2 * c * n,
-        "base_mul_add": 2 * c * n, "pt_add": 2 * c * n,
-    }
-    windows = {"dual_mul": GLV_WINDOWS, "quad_mul": GLV_WINDOWS,
-               "base_mul_add_glv": GLV_WINDOWS, "scalar_mul": COMB_WINDOWS,
-               "dual_mul_64": COMB_WINDOWS, "base_mul_add": COMB_WINDOWS}
-    # bytes each input is read once and the output written once: int64
-    # points 384 B, scalars 128 B, sign flags 16 B; the constant tables once
-    bytes_per_lane = {"mul_comb": 128 + 384, "dual_mul": 2 * 512 + 384,
-                      "quad_mul": 4 * 512 + 384,
-                      "base_mul_add_glv": 2 * 512 + 2 * 128 + 16 + 384,
-                      "scalar_mul": 512 + 384, "dual_mul_64": 2 * 512 + 384,
-                      "base_mul_add": 384 + 2 * 128 + 384,
-                      "pt_add": 2 * 384 + 384}
-    table_bytes = {"mul_comb": 64 * 16 * 384, "base_mul_add_glv": 2 * 16 * 384,
-                   "base_mul_add": 16 * 384}
+    # ---- 8. the kernels line: phase 3's times beside each row's bound ---------------
     report = []
-    timed = [(name, shapes[name], False) for name in ROWS]
-    timed += [(name, lanes, True) for name, lanes in GROUP_TIMED]
     for name, lanes, extra in timed:
-        run_k, run_p, _ = kernel_inputs(name, lanes)
-        run_k()
-        torch.cuda.synchronize()
-        reps = 5
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            got = run_k()
-        e1.record()
-        torch.cuda.synchronize()
-        ms = e0.elapsed_time(e1) / reps
-        e0.record()
-        ref = run_p()
-        e1.record()
-        torch.cuda.synchronize()
-        plain_ms = e0.elapsed_time(e1)
-        err = int((got - ref).abs().max())
-        if err:
+        t = timing[(name, lanes)]
+        if t["max_abs_err"]:
             raise AssertionError(f"{name}: kernel and plain differ at {lanes} lanes")
         ops_s = cuda_ec.int_muls(name.removesuffix("_64"), lanes,
                                  windows.get(name, GLV_WINDOWS)) / INT_MUL_RATE
@@ -778,12 +1010,11 @@ def main() -> int:
                    + table_bytes.get(name, 0)) / HBM_RATE
         path = ("seal 20x32" if name in SEAL_KERNELS else "validator")
         kernel = name.removesuffix("_64")
-        shape = (cuda_ec.launch_shape(kernel, lanes) if name in GROUP_ROWS
-                 else (1, None, 128, 0))
-        row = kernel + (f"<{shape[0]}>" if name in GROUP_ROWS else "")
+        shape = cuda_ec.launch_shape(kernel, lanes)
+        row = f"{kernel}<{shape[0]}>"
         report.append({
             "name": f"{name}@{lanes}" if extra else name, "route": "cuda",
-            "source": GROUP_SOURCE if name in GROUP_ROWS else SOURCE,
+            "source": SOURCE if name == "pt_add" else GROUP_SOURCE,
             "replaces": REPLACES[name],
             "launches": ((auction_lanes[AUCTIONS[0]] if name in SEAL_KERNELS
                           else validator_lanes).get((name, lanes), 0) if extra
@@ -803,9 +1034,13 @@ def main() -> int:
             f"launches_hub_{HUB[0]}x{HUB[1]}": (
                 hub_lanes.get((name, lanes), 0) if extra
                 else hub_launches[name]),
+            f"launches_mesh_{MESH[0]}x{MESH[1]}": (
+                mesh_lanes.get((name, lanes), 0) if extra
+                else sum(v for (k, _), v in mesh_lanes.items() if k == name)),
             "launches_validator": validator_launches[name],
-            "lanes": lanes, "windows": windows.get(name), "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
+            "lanes": lanes, "windows": windows.get(name),
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "library_ms": None,
@@ -813,10 +1048,10 @@ def main() -> int:
             "threads_a_lane": shape[0], "threads_a_block": shape[2],
             "smem_bytes": shape[3],
         })
-        log(f"[time] {name} at {lanes} lanes: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms, bound {1e3 * max(ops_s, bytes_s):.4f} ms")
+        log(f"[time] {name} at {lanes} lanes: kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.1f} ms, bound {1e3 * max(ops_s, bytes_s):.4f} ms")
 
-    log(f"[done] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] total {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,8 @@
 // Inputs are the port's int64 16-bit limbs ((n, 3, 16) points, (n, 16)
 // scalars), repacked to 8 x 32-bit words on load; 4-bit window digits are
 // read from the scalar limbs in the kernel, least significant first.
-// pt_add, one add a lane, keeps the first, simple design: one thread per
-// lane, 128 threads per block, a grid over the lanes with the ragged edge
-// masked.
+// pt_add, one add a lane, runs on the same group add: G threads a lane, one
+// warp a block, the block's lanes staged through shared memory.
 //
 // What bounds the ladders: 32-bit integer multiplies (pt_add is bound by
 // its bytes instead; see its note).  One field mul is an 8x8 schoolbook of
@@ -40,8 +39,6 @@
 #include "ec_group.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
 
 using pa::grp::Args;
 using pa::grp::kWarp;
@@ -156,25 +153,70 @@ int launch_straus(const Args& a, int group, int blocks, int threads, int smem,
 }
 
 // ---------------------------------------------------------------------------
-// pt_add: one complete RCB16 Alg 7 add P + Q per lane, the sequence of the
+// pt_add: one complete RCB16 Alg 7 add P + Q a lane, the sequence of the
 // plain ec.add.  Replaces _pt_add_kernel (privacy_auction_tpu/ops/pallas_ec.py:399).
 // Bound by bytes, not multiplies: a lane moves 1,152 B as int64 limbs (two
-// 384 B points read, one written) for 12 field muls, so at 3.35 TB/s the
-// memory takes about 3x the multiply time.  One thread per lane reads its
-// own 48 limbs; the layout conversion keeps the package's int64 format, which
-// is 4x the bytes of packed 32-bit words.
+// 384 B points read, one written) for 12 field muls.  Below some ten
+// thousand lanes a launch is too small to stream those bytes at the card's
+// rate, and one lane's chain of muls sets its time.  So a lane is G threads
+// of one warp sharing the add by field multiply (pt_add_grp<G>, two rounds
+// of six muls at G = 8), one warp a block of 32 / G lanes, which spreads a
+// launch over G times as many warps as one thread a lane would; and the
+// block's points come in and go out through shared memory as 16-byte chunks
+// at consecutive addresses (a chunk is two limbs, one 32-bit word,
+// converted once), not as each thread's own 48 limbs at a 384 B stride.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-pt_add_kernel(const int64_t* __restrict__ P, const int64_t* __restrict__ Q,
-              int64_t* __restrict__ out, int n) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= n) return;
-  pa::pt_store_limbs(out + (size_t)lane * 48,
-                     pa::pt_add(pa::pt_load_limbs(P + (size_t)lane * 48),
-                                pa::pt_load_limbs(Q + (size_t)lane * 48)));
+template <int G>
+__global__ void __launch_bounds__(kWarp)
+pt_add_kernel(const longlong2* __restrict__ P, const longlong2* __restrict__ Q,
+              longlong2* __restrict__ out, int n) {
+  constexpr int kLanes = kWarp / G;
+  constexpr int kWords = 24;            // 32-bit words of a point
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* sp = reinterpret_cast<uint32_t*>(smem);   // P, then the sums
+  uint32_t* sq = sp + kLanes * kWords;                 // Q
+  const int first = blockIdx.x * kLanes;
+  const int words = min(kLanes, n - first) * kWords;   // the ragged edge
+  const size_t base = (size_t)first * kWords;
+  for (int j = threadIdx.x; j < words; j += kWarp) {
+    const longlong2 p = P[base + j], q = Q[base + j];
+    sp[j] = (uint32_t)p.x | ((uint32_t)p.y << 16);
+    sq[j] = (uint32_t)q.x | ((uint32_t)q.y << 16);
+  }
+  __syncthreads();
+  // a lane past the edge adds the block's first lane again and stores
+  // nothing: every thread of the warp takes part in the shuffles
+  const int g = threadIdx.x % G;
+  const int slot = first + threadIdx.x / G < n ? threadIdx.x / G : 0;
+  const pa::Pt a = *reinterpret_cast<const pa::Pt*>(sp + slot * kWords);
+  const pa::Pt b = *reinterpret_cast<const pa::Pt*>(sq + slot * kWords);
+  const pa::Pt r = pa::grp::pt_add_grp<G>(a, b, g);
+  __syncthreads();
+  if (slot == threadIdx.x / G) {
+    // thread g stores words g, g + G, ...: indices fixed at compile time,
+    // so r stays in registers
+    const uint32_t* rw = reinterpret_cast<const uint32_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < kWords; ++i)
+      if (i % G == g) sp[slot * kWords + i] = rw[i];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < words; j += kWarp)
+    out[base + j] = make_longlong2(sp[j] & 0xffffu, sp[j] >> 16);
 }
 
-inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
+template <int G>
+int launch_pt_add(const int64_t* P, const int64_t* Q, int64_t* out, int n,
+                  int blocks, int threads, int smem, void* stream) {
+  constexpr int kLanes = kWarp / G;
+  if (blocks != (n + kLanes - 1) / kLanes || threads != kWarp ||
+      smem != 2 * kLanes * 96)
+    return (int)cudaErrorInvalidValue;
+  pt_add_kernel<G><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      reinterpret_cast<const longlong2*>(P), reinterpret_cast<const longlong2*>(Q),
+      reinterpret_cast<longlong2*>(out), n);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -239,10 +281,15 @@ int pa_base_mul_add(const int64_t* P, const int64_t* t, const int64_t* s,
   return launch_straus<kBase>(a, group, blocks, threads, smem, stream);
 }
 
-int pa_pt_add(const int64_t* P, const int64_t* Q, int64_t* out, int n, void* stream) {
-  if (n > 0)
-    pt_add_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(P, Q, out, n);
-  return (int)cudaGetLastError();
+// pt_add's shape: G = 8 or 4 threads a lane, one warp of 32 / G lanes a
+// block, shared memory for the block's P and Q as 32-bit words; the points'
+// addresses 16-byte aligned (the wrapper checks); anything else is refused.
+int pa_pt_add(const int64_t* P, const int64_t* Q, int64_t* out, int n, int group,
+              int blocks, int threads, int smem, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (group == 8) return launch_pt_add<8>(P, Q, out, n, blocks, threads, smem, stream);
+  if (group == 4) return launch_pt_add<4>(P, Q, out, n, blocks, threads, smem, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

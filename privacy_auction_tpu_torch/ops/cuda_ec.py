@@ -19,10 +19,11 @@ here.
 | quad_mul           | quad_mul_kernel<G>         | _quad_mul_kernel (pallas_ec.py:404)     |
 | base_mul_add_glv   | base_mul_add_glv_kernel<G> | _base_mul_add_glv_kernel (pallas_ec.py:436) |
 | base_mul_add       | base_mul_add_kernel<G>     | _base_mul_add_kernel (pallas_ec.py:496) |
-| pt_add             | pt_add_kernel              | _pt_add_kernel (pallas_ec.py:399)       |
+| pt_add             | pt_add_kernel<G>           | _pt_add_kernel (pallas_ec.py:399)       |
 
-The six `<G>` kernels (GROUP_KERNELS) run G threads per lane with their
-window tables in shared memory (`csrc/ec_group.cuh`); `launch_shape` gives
+The seven `<G>` kernels (GROUP_KERNELS) run G threads per lane
+(`csrc/ec_group.cuh`), the six ladders with their window tables in shared
+memory, pt_add with its block's points staged there; `launch_shape` gives
 their grid, block and dynamic shared memory, which the launcher checks
 against its build.  The constant tables (comb tables, the window-0 tables of
 G and phi(G)) are packed to 32-bit words once per tensor and kept.
@@ -67,7 +68,8 @@ launch_lanes: dict[tuple[str, int], int] = {}
 # each lane (scalar_mul: 1; dual_mul: 2; quad_mul: 4; base_mul_add: 1,
 # besides the constant table of G once a block; base_mul_add_glv: 2,
 # besides the two constant tables of G and phi(G) once a block).  mul_comb runs blocks of COMB_WARPS warps
-# (comb_shape) over a ring of COMB_RING window tables of the comb.
+# (comb_shape) over a ring of COMB_RING window tables of the comb.  pt_add
+# runs one warp of 32 // G lanes a block, their points in shared memory.
 # GROUP_STEPS: the G launch_shape takes, that of the first (lanes, G) whose
 # lane count the launch does not pass (None: any).  G = 8 serves the small
 # launches, a few warps an SM and latency-bound; above, fewer threads a lane
@@ -79,7 +81,8 @@ GROUP_STEPS = {"mul_comb": ((4096, 8), (None, 2)),
                "quad_mul": ((2048, 8), (None, 4)),
                "base_mul_add_glv": ((2048, 8), (None, 4)),
                "scalar_mul": ((2048, 8), (None, 4)),
-               "base_mul_add": ((2048, 8), (None, 4))}
+               "base_mul_add": ((2048, 8), (None, 4)),
+               "pt_add": ((2048, 8), (None, 4))}
 GROUPS = {k: tuple(g for _, g in steps) for k, steps in GROUP_STEPS.items()}
 GROUP_KERNELS = tuple(GROUP_STEPS)
 SMS = 132                # streaming multiprocessors of an H100 SXM
@@ -101,6 +104,9 @@ def launch_shape(kernel: str, lanes: int,
     if kernel == "mul_comb":
         return comb_shape(lanes, group)
     per_block = WARP // group
+    if kernel == "pt_add":
+        # the block's P and Q as 32-bit words, 96 B a point
+        return group, -(-lanes // per_block), WARP, 2 * per_block * 96
     tables = {"scalar_mul": per_block, "dual_mul": 2 * per_block,
               "quad_mul": 4 * per_block, "base_mul_add": 1 + per_block,
               "base_mul_add_glv": 2 + 2 * per_block}[kernel]
@@ -233,7 +239,7 @@ def build() -> Build:
     lib.pa_base_mul_add_glv.argtypes = [P] * 9 + [I] * 6 + [P]
     lib.pa_scalar_mul.argtypes = [P, P, P] + [I] * 6 + [P]
     lib.pa_base_mul_add.argtypes = [P] * 5 + [I] * 5 + [P]
-    lib.pa_pt_add.argtypes = [P, P, P, I, P]
+    lib.pa_pt_add.argtypes = [P, P, P] + [I] * 5 + [P]
     for fn in (lib.pa_mul_comb, lib.pa_dual_mul, lib.pa_quad_mul,
                lib.pa_base_mul_add_glv, lib.pa_scalar_mul, lib.pa_base_mul_add,
                lib.pa_pt_add):
@@ -247,9 +253,9 @@ def build() -> Build:
 # --------------------------------------------------------------------------
 
 # The kernels that look up window tables by a secret digit (every group
-# kernel), and the name of their select function (pt_select16_shared,
+# kernel but pt_add), and the name of their select function (pt_select16_shared,
 # __noinline__, so it is a function of its own in every kernel's SASS).
-SELECT_KERNELS = GROUP_KERNELS
+SELECT_KERNELS = tuple(k for k in GROUP_KERNELS if k != "pt_add")
 SELECT_NAME = "pt_select16_shared"
 ENTRY_BYTES = 96
 _PRED = r"(@!?U?P[T0-9]+\s+)?"
@@ -523,15 +529,19 @@ def base_mul_add(curve, s, P, t, g0_table, shape=None) -> torch.Tensor:
     return out.reshape(batch + (3, 16))
 
 
-def pt_add(curve, P, Q) -> torch.Tensor:
+def pt_add(curve, P, Q, shape=None) -> torch.Tensor:
     """One complete projective add P + Q per lane."""
     _check_curve("pt_add", curve)
     (p, q), batch = _lanes("pt_add", [P, Q], [(3, 16), (3, 16)])
+    # the kernel reads and writes 16-byte chunks: a view that starts
+    # within a chunk (a whole point is 384 B) is copied to its own storage
+    p, q = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (p, q))
     n = p.shape[0]
     out = _out(n, p)
     lib = build().lib
-    _check("pt_add", lib.pa_pt_add(_ptr(p), _ptr(q), _ptr(out), n,
-                                   _stream(p.device)))
+    _check("pt_add", lib.pa_pt_add(
+        _ptr(p), _ptr(q), _ptr(out), n,
+        *(shape or launch_shape("pt_add", n)), _stream(p.device)))
     _count("pt_add", n)
     return out.reshape(batch + (3, 16))
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field as dc_field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -501,12 +502,34 @@ def from_random_bits(spec: FieldSpec, bits32):
     return _reduce(spec, v, MASK, (1 << (32 * words)) - 1)
 
 
-def random(spec: FieldSpec, generator: torch.Generator, shape=(),
-           device=None):
+class Rows(NamedTuple):
+    """One rank's rows of every draw over all `total` bidders (the bidder
+    mesh, `parallel/mesh.py`).  Given as `random`'s generator, the draw is
+    made at the unsharded shape and the rank keeps `rows`: it takes from
+    `generator` what the unsharded driver takes, and its lanes get the
+    values the unsharded driver's lanes get."""
+
+    generator: torch.Generator
+    rows: slice
+    total: int
+
+
+def random(spec: FieldSpec, generator, shape=(), device=None,
+           bidder_dim: int = 1):
     """Uniform field elements: `random_words(spec)` words each, drawn from
     `generator` on its own device, then moved to `device` (default: the
     generator's), so one seeded CPU generator gives the same elements on
-    every device."""
+    every device.  With `Rows` of a generator, shape[bidder_dim] is the
+    rank's row count: the draw is made with `total` there and the rows
+    kept."""
+    if isinstance(generator, Rows):
+        shape, rows = tuple(shape), generator.rows
+        if shape[bidder_dim] != rows.stop - rows.start:
+            raise ValueError(f"random: dim {bidder_dim} of {shape} is not the "
+                             f"rank's {rows.stop - rows.start} bidder rows")
+        full = shape[:bidder_dim] + (generator.total,) + shape[bidder_dim + 1:]
+        return random(spec, generator.generator, full, device).narrow(
+            bidder_dim, rows.start, rows.stop - rows.start)
     words = torch.randint(0, 1 << 32, tuple(shape) + (random_words(spec),),
                           generator=generator, dtype=DTYPE,
                           device=generator.device)

@@ -33,6 +33,15 @@ Randomness: every scalar enters explicitly (`setup_from`, `ot_receive1_from`,
 on every device.  The evaluator's id is a value, never a branch that
 changes shapes.  The protocol has no verification phase (the commitments
 bind the parties for a later audit), so no proof is generated or checked.
+
+Both drivers run on a bidder mesh (`run_auction(mesh=...)`,
+`parallel/mesh.py`): each rank draws every scalar of all n lanes, in the
+unsharded order, keeps its rows and runs the lane-local ladders on them.
+It gathers where the protocol crosses bidders: the evaluator's commitment
+hash (its own secrets and every lane's OT betas), the AV-net keys, the
+evaluator's effective bit (its OT choice, which may live on any rank) and
+the veto sum it announces, each over all n lanes on every rank, so every
+rank announces the same bits.
 """
 
 from __future__ import annotations
@@ -47,8 +56,9 @@ from ..curves import Curve, make_comb_table
 from ..ops import ec
 from ..ops import field as F
 from ..ops.sha256 import digest_to_scalar, sha256
+from ..parallel import mesh as M
 from .phases import phase_runner
-from .seal import avnet_keys, bids_to_bits, bits_to_int
+from .seal import avnet_rows, bids_to_bits, bits_to_int
 
 LIMBS = F.LIMBS
 
@@ -108,11 +118,19 @@ class SetupPub(NamedTuple):
     com: torch.Tensor   # (n, 3, L) commitments
 
 
+def _lane_ids(n: int, device, mesh=None):
+    """The lane ids of this rank's n rows."""
+    rows = M.bidder_rows(mesh, n * M.mesh_size(mesh))
+    return torch.arange(rows.start, rows.stop, device=device)
+
+
 def setup_from(curve: Curve, pp: PubParams, bids, sec: SetupSec, eval_id,
-               eval_betas=None) -> SetupPub:
+               eval_betas=None, mesh=None) -> SetupPub:
     """Setup for all n parties from given secrets.  bids (n, L) limbs;
     eval_betas (n, c, L): the evaluator's OT betas, hashed into its H (its
-    own lane's betas are unused but hashed, so the message has one shape)."""
+    own lane's betas are unused but hashed, so the message has one shape).
+    On a mesh, every argument holds this rank's rows; the evaluator's
+    message is gathered."""
     fn = curve.fn
     n, c = sec.x.shape[:2]
     dev = sec.x.device
@@ -123,10 +141,11 @@ def setup_from(curve: Curve, pp: PubParams, bids, sec: SetupSec, eval_id,
     H = digest_to_scalar(fn, sha256(msg))                  # (n, L)
     if eval_betas is not None:
         eid = torch.as_tensor(eval_id, device=dev).reshape(1)
-        emsg = torch.cat([msg.index_select(0, eid)[0],
-                          F.to_bytes_be(eval_betas).reshape(n * c * 32)])
+        msg_all, betas_all = M.gather_bidders(mesh, (msg, eval_betas))
+        emsg = torch.cat([msg_all.index_select(0, eid)[0],
+                          F.to_bytes_be(betas_all).reshape(-1)])
         He = digest_to_scalar(fn, sha256(emsg))
-        H = F.select(torch.arange(n, device=dev) == eid, He, H)
+        H = F.select(_lane_ids(n, dev, mesh) == eid, He, H)
     com = ec.add(curve, ec.mul_base(curve, bids),
                  ec.add(curve, ec.mul_comb(curve, pp.g1_table, H),
                         ec.mul_comb(curve, pp.h_table, sec.rcom)))
@@ -152,10 +171,11 @@ def setup(curve: Curve, generator, pp: PubParams, bids, c: int, eval_id,
 # BES encode
 # --------------------------------------------------------------------------
 
-def bes_encode(curve: Curve, X_step, x_step, r_step, d):
-    """AV-net bit encoding for all parties: X_step (n, 3, L) the step's
-    public keys, d (n,) the effective bits; B = x*Y if d == 0 else g^r."""
-    Y = avnet_keys(curve, X_step)
+def bes_encode(curve: Curve, X_step, x_step, r_step, d, mesh=None):
+    """AV-net bit encoding for all parties (this rank's on a mesh): X_step
+    (n, 3, L) the step's public keys, d (n,) the effective bits; B = x*Y if
+    d == 0 else g^r."""
+    Y = avnet_rows(curve, X_step, mesh)
     enc0 = ec.scalar_mul(curve, Y, x_step)
     enc1 = ec.mul_base(curve, r_step)
     return ec.select(d == 0, enc0, enc1)
@@ -221,23 +241,24 @@ def ot_send(curve: Curve, generator, pp: PubParams, r1: OTR1, B, s, t) -> OTS:
     return ot_send_from(curve, pp, r1, B, s, t, m1k)
 
 
-def _announce(curve: Curve, M0, own_B, d, eval_id):
+def _announce(curve: Curve, M0, own_B, d, eval_id, mesh=None):
     """The evaluator's lane carries no OT message: its own B stands there.
-    Announce its own d OR (sum of the lanes != infinity).  The evaluator's
-    lane is read with `index_select`, which needs no read back to the host
-    (indexing by a tensor would)."""
-    n = M0.shape[0]
+    Announce its own d OR (sum of the lanes != infinity).  M0 and own_B
+    hold this rank's rows, d (the effective bits) every lane's.  The
+    evaluator's lane is read with `index_select`, which needs no read back
+    to the host (indexing by a tensor would)."""
     eid = torch.as_tensor(eval_id, device=M0.device).reshape(1)
-    M0 = ec.select(torch.arange(n, device=M0.device) == eid, own_B, M0)
-    total = ec.ec_sum(curve, M0, dim=0)
+    M0 = ec.select(_lane_ids(M0.shape[0], M0.device, mesh) == eid, own_B, M0)
+    total = ec.ec_sum(curve, M.gather_bidders(mesh, M0), dim=0)
     return (d.index_select(0, eid)[0] != 0) | ~ec.is_infinity(total)
 
 
-def ot_receive2(curve: Curve, ots: OTS, beta, own_B, own_d, eval_id):
+def ot_receive2(curve: Curve, ots: OTS, beta, own_B, d, eval_id, mesh=None):
     """The evaluator recovers the veto sum and announces the step bit; the
-    decryption always runs.  Returns a () bool tensor."""
+    decryption always runs.  d: every lane's effective bits.  Returns a ()
+    bool tensor."""
     M0 = ec.add(curve, ots.C0, ec.neg(curve, ec.scalar_mul(curve, ots.z, beta)))
-    return _announce(curve, M0, own_B, own_d, eval_id)
+    return _announce(curve, M0, own_B, d, eval_id, mesh)
 
 
 def update_race(in_race, d, announced):
@@ -282,13 +303,14 @@ class Precomputed(NamedTuple):
     m0a: torch.Tensor   # gb^s hb^t
 
 
-def _precompute(curve: Curve, pp: PubParams, X, draws: Draws) -> Precomputed:
+def _precompute(curve: Curve, pp: PubParams, X, draws: Draws,
+                mesh=None) -> Precomputed:
     """The seven hoisted ladder passes over all (n, c) lanes.  With alpha
     the evaluator's choice bit:  G = gb + alpha*g1,  H = hb + alpha*T2,
     G^s H^t = m0a + alpha*E,  (G/g1)^s (H/T2)^t = m0a + (alpha-1)*E,  and
     beta*z = z^beta."""
     sec, beta = draws.sec, draws.beta
-    Y = avnet_keys(curve, X)                              # along the parties
+    Y = avnet_rows(curve, X, mesh)                        # along the parties
     enc1, T2, M1, gb = ec.mul_base(
         curve, torch.stack([sec.r, draws.k_rand, draws.m1k, beta]))
     hb = ec.mul_comb(curve, pp.h_table, beta)
@@ -302,10 +324,12 @@ def _precompute(curve: Curve, pp: PubParams, X, draws: Draws) -> Precomputed:
                          (enc0, enc1, T2, M1, gb, hb, z, bz, E, m0a)))
 
 
-def _scan_steps(curve: Curve, pre: Precomputed, g1n, bits, eval_id):
+def _scan_steps(curve: Curve, pre: Precomputed, g1n, bits, eval_id,
+                mesh=None):
     """The c steps over the precomputed streams, most significant bit
     first.  Returns (announced (c,) bool, OTR1 and OTS with leading axis c),
-    all on the device: nothing is read back between steps."""
+    all on the device: nothing is read back between steps (but the gathers
+    of a mesh of gloo ranks, through the host)."""
     n, c = bits.shape
     dev = bits.device
     eid = torch.as_tensor(eval_id, device=dev).reshape(1)
@@ -315,7 +339,8 @@ def _scan_steps(curve: Curve, pre: Precomputed, g1n, bits, eval_id):
         p = Precomputed(*(a[step] for a in pre))
         d = bits[:, step] & in_race
         B = ec.select(d == 0, p.enc0, p.enc1)
-        alpha = (d.index_select(0, eid) != 0).expand(n)
+        d_all = M.gather_bidders(mesh, d)
+        alpha = (d_all.index_select(0, eid) != 0).expand(n)
         # the receiver's message and both sender masks, each with and
         # without the alpha term, in one batched add
         up = ec.add(curve, torch.stack([p.gb, p.hb, p.m0a, p.m0a]),
@@ -327,7 +352,7 @@ def _scan_steps(curve: Curve, pre: Precomputed, g1n, bits, eval_id):
         C0, C1 = ec.add(curve, torch.stack([mask0, mask1]),
                         torch.stack([B, p.M1]))
         M0 = ec.add(curve, C0, ec.neg(curve, p.bz))
-        ann = _announce(curve, M0, B, d, eid)
+        ann = _announce(curve, M0, B, d_all, eid, mesh)
         in_race = update_race(in_race, d, ann)
         announced.append(ann)
         r1s.append(OTR1(T2=p.T2, G=G, H=H))
@@ -353,7 +378,7 @@ class AuctionResult(NamedTuple):
 
 
 def _run_metered(curve: Curve, pp: PubParams, pub: SetupPub, bits, eval_id,
-                 draws: Draws, phase):
+                 draws: Draws, phase, mesh=None):
     """The c steps as one call a phase and role, as the JAX package's
     role-metered driver runs them: BES encoding and the OT reply are bidder
     time, both OT receiver calls evaluator time.  Fed the fused driver's
@@ -368,16 +393,18 @@ def _run_metered(curve: Curve, pp: PubParams, pub: SetupPub, bits, eval_id,
     announced, r1s, otss = [], [], []
     for step in range(c):
         d = bits[:, step] & in_race
+        d_all = M.gather_bidders(mesh, d)
         B = phase("bes_encode", bes_encode, curve, pub.X[:, step],
-                  sec.x[:, step], sec.r[:, step], d, role=CATEGORY_BIDDER)
+                  sec.x[:, step], sec.r[:, step], d, mesh,
+                  role=CATEGORY_BIDDER)
         r1 = phase("ot_receive1", ot_receive1_from, curve, pp, beta[:, step],
-                   d.index_select(0, eid), draws.k_rand[:, step],
+                   d_all.index_select(0, eid), draws.k_rand[:, step],
                    role=CATEGORY_EVALUATOR)
         ots = phase("ot_send", ot_send_from, curve, pp, r1, B,
                     sec.s[:, step], sec.t[:, step], draws.m1k[:, step],
                     role=CATEGORY_BIDDER)
         ann = phase("ot_receive2", ot_receive2, curve, ots, beta[:, step], B,
-                    d, eid, role=CATEGORY_EVALUATOR)
+                    d_all, eid, mesh, role=CATEGORY_EVALUATOR)
         in_race = update_race(in_race, d, ann)
         announced.append(ann)
         r1s.append(r1)
@@ -391,7 +418,7 @@ def run_auction(curve: Curve, bids, c: int, eval_id: int = 0,
                 generator: torch.Generator | None = None, device="cuda",
                 phase_times: dict | None = None,
                 draws: Draws | None = None, times=None,
-                trackers=None) -> AuctionResult:
+                trackers=None, mesh=None) -> AuctionResult:
     """Full CCS22 auction for integer bids, the evaluator at lane eval_id
     (also a bidder).
 
@@ -403,54 +430,70 @@ def run_auction(curve: Curve, bids, c: int, eval_id: int = 0,
     points, not as projective limbs).
 
     generator: the source of every scalar when `draws` is not given (a
-    fresh, OS-seeded CPU generator when None; not a cryptographic
-    generator).  phase_times: optional dict; each phase's wall time in
-    seconds, taken after a device synchronize, is added under its name.
-    Each phase runs in a `torch.profiler` range named `ccs22.<phase>`.
-    times: optional `utils.trackers.TimeTracker`: the setup, BES encoding
-    and the OT reply accrue to "bidder", both OT receiver calls to
-    "evaluator"; then 1/n of the bidder time moves to the evaluator, whose
-    own bidder lane the batched calls carry.  trackers: optional
-    `utils.trackers.Ccs22CommTracker`, charged each step's messages (the
-    caller charges the setup, as the CLI does).
+    fresh, OS-seeded CPU generator when None, on a mesh seeded from rank
+    0; not a cryptographic generator).  phase_times: optional dict; each
+    phase's wall time in seconds, taken after a device synchronize, is
+    added under its name.  Each phase runs in a `torch.profiler` range
+    named `ccs22.<phase>`.  times: optional `utils.trackers.TimeTracker`:
+    the setup, BES encoding and the OT reply accrue to "bidder", both OT
+    receiver calls to "evaluator"; then 1/n of the bidder time moves to
+    the evaluator, whose own bidder lane the batched calls carry (on a
+    mesh: this rank's times, moved on the evaluator's rank).  trackers:
+    optional `utils.trackers.Ccs22CommTracker`, charged each step's
+    messages (the caller charges the setup, as the CLI does).
+    mesh: optional bidder mesh (`parallel.mesh`), called on every rank
+    with the same arguments: the bids are padded with zero bids to a
+    multiple of the mesh size (`draws`, if given, are the padded n's), and
+    every rank returns the same result, with the whole board, equal to the
+    unsharded run's from the same draws.
     """
     from ..utils.trackers import CATEGORY_BIDDER, CATEGORY_EVALUATOR
 
+    bids = list(bids)
+    if mesh is not None:
+        bids += [0] * (M.pad_bidders(len(bids), mesh.size()) - len(bids))
     n = len(bids)
-    bits = torch.as_tensor(bids_to_bits(bids, c), device=device)
+    rows = M.bidder_rows(mesh, n)
+    bits = torch.as_tensor(bids_to_bits(bids, c), device=device)[rows]
     bid_scalars = torch.as_tensor(
-        F.ints_to_limbs([b % curve.host.n for b in bids])).to(device)
+        F.ints_to_limbs([b % curve.host.n for b in bids])).to(device)[rows]
     if draws is None:
         if generator is None:
-            generator = torch.Generator()
-            generator.seed()
+            generator = M.new_generator(mesh)
         draws = draw(curve, generator, n, c, device)
+    if draws.beta.shape[0] != n:
+        raise ValueError(f"draws for {draws.beta.shape[0]} lanes, the auction "
+                         f"has {n}")
+    draws = M.shard_bidders(mesh, draws)
     pp = pp_or_make(curve, device)
 
     phase = phase_runner("ccs22", phase_times, bits.device, times)
     bidder_t0 = (times.get_category_time_seconds(CATEGORY_BIDDER)
                  if times is not None else 0.0)
     pub = phase("setup", setup_from, curve, pp, bid_scalars, draws.sec,
-                eval_id, draws.beta, role=CATEGORY_BIDDER)
+                eval_id, draws.beta, mesh, role=CATEGORY_BIDDER)
     if times is None:
-        pre = phase("precompute", _precompute, curve, pp, pub.X, draws)
+        pre = phase("precompute", _precompute, curve, pp, pub.X, draws, mesh)
         announced, r1, ots = phase("steps", _scan_steps, curve, pre,
-                                   pp.g1.expand(n, 3, LIMBS), bits, eval_id)
+                                   pp.g1.expand(bits.shape[0], 3, LIMBS), bits,
+                                   eval_id, mesh)
     else:
         announced, r1, ots = _run_metered(curve, pp, pub, bits, eval_id,
-                                          draws, phase)
-        if n > 1:
+                                          draws, phase, mesh)
+        if n > 1 and rows.start <= eval_id < rows.stop:
             # the batched bidder calls carry the evaluator's own bidder
             # lane; the reference's bidder loops leave the evaluator out
             # (`CCS22/main.cpp:95,111`), so 1/n of that time is its
             shift = (times.get_category_time_seconds(CATEGORY_BIDDER)
-                     - bidder_t0) / n
+                     - bidder_t0) / bits.shape[0]
             times.add_time(CATEGORY_BIDDER, -shift)
             times.add_time(CATEGORY_EVALUATOR, shift)
     deciding = announced.cpu().numpy().astype(np.uint8)
     if trackers is not None:
         for _ in range(c):
             trackers.account_step(n)
+    pub = M.gather_bidders(mesh, pub)
+    r1, ots = M.gather_bidders(mesh, (r1, ots), 1)   # (c, n, ...)
     return AuctionResult(max_bid=bits_to_int(deciding),
                          deciding_bits=deciding,
                          board=Board(setup=pub, otr1=r1, ots=ots,

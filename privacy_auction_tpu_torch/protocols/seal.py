@@ -19,6 +19,17 @@ branchless.  Every call is one batched computation over all n bidders
 
 Randomness comes from one `torch.Generator`, drawn in a fixed order that
 both drivers share; a CPU generator gives the same nonces on every device.
+
+Both drivers run on a bidder mesh (`run_auction(mesh=...)`,
+`parallel/mesh.py`): each rank holds a contiguous block of the bidders'
+rows and runs every lane-local phase on them (commit, proofs, checks,
+ciphertexts, the ladders at n/D lanes).  The protocol crosses bidders in
+two places, where the rank gathers the rows of all ranks: the AV-net
+prefix scan and the round-three veto sum, each through the same
+Hillis-Steele tree on every rank; every check's flag is ANDed over the
+ranks.  A rank draws every nonce of all n lanes, in the unsharded order,
+and keeps its rows (`field.Rows`), so the published board is the unsharded
+run's, bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from .. import nizk
 from ..curves import Curve
 from ..ops import ec
 from ..ops import field as F
+from ..parallel import mesh as M
 from .phases import phase_runner
 
 LIMBS = F.LIMBS
@@ -170,8 +182,8 @@ def verify_commit(curve: Curve, pub: CommitmentPub, ids):
 def draw_round_one(curve: Curve, generator, n: int, c: int, device):
     """All c steps' round-1 scalars, in the order both drivers draw them:
     the keys xr = (x, r) and then the Schnorr nonces v, each (2, c, n, L)."""
-    xr = F.random(curve.fn, generator, (2, c, n), device)
-    return xr, F.random(curve.fn, generator, (2, c, n), device)
+    xr = F.random(curve.fn, generator, (2, c, n), device, bidder_dim=2)
+    return xr, F.random(curve.fn, generator, (2, c, n), device, bidder_dim=2)
 
 
 def round_one_from(curve: Curve, xr, v, ids, steps):
@@ -228,6 +240,16 @@ def avnet_keys(curve: Curve, X):
 def avnet_keys_steps(curve: Curve, X):
     """`avnet_keys` for all steps at once: X (c, n, 3, L) -> (c, n, 3, L)."""
     return avnet_keys(curve, X.movedim(1, 0)).movedim(0, 1)
+
+
+def avnet_rows(curve: Curve, X, mesh=None, dim: int = 0):
+    """The AV-net keys of this rank's rows of X, whose bidder axis is
+    `dim`: X gathered from every rank, the scan over all n bidders (the
+    same tree on every rank), the rank's rows kept.  Without a mesh,
+    `avnet_keys` along `dim`."""
+    full = M.gather_bidders(mesh, X, dim)
+    Y = avnet_keys(curve, full.movedim(dim, 0)).movedim(0, dim)
+    return M.shard_bidders(mesh, Y, dim)
 
 
 def _b01(curve: Curve, Y, R, x):
@@ -301,10 +323,11 @@ def verify_round_two_stage2(curve: Curve, pub2: RoundTwoPub,
     return nizk.ver_powfstage2(curve, pub2.proof2, pts, ids, step)
 
 
-def round_three(curve: Curve, b):
+def round_three(curve: Curve, b, mesh=None):
     """Veto aggregation: True iff sum_j b_j != infinity, i.e. the max-bid
-    bit at this step is 1.  Returns a () bool tensor."""
-    return ~ec.is_infinity(ec.ec_sum(curve, b, dim=0))
+    bit at this step is 1; b holds this rank's rows, gathered from every
+    rank on a mesh.  Returns a () bool tensor."""
+    return ~ec.is_infinity(ec.ec_sum(curve, M.gather_bidders(mesh, b), dim=0))
 
 
 # --------------------------------------------------------------------------
@@ -347,10 +370,10 @@ class Precomputed(NamedTuple):
 
 def run_steps(curve: Curve, generator, pre: Precomputed, bits, ids,
               commit_pub: CommitmentPub, commit_sec: CommitmentSec,
-              verify: bool):
-    """The fused driver's c auction steps, most significant bit first.
-    Returns (deciding (c,) list of bool, ok () bool tensor, the steps'
-    RoundTwoPub)."""
+              verify: bool, mesh=None):
+    """The fused driver's c auction steps, most significant bit first, on
+    this rank's rows.  Returns (deciding (c,) list of bool, ok () bool
+    tensor of this rank's checks, the steps' RoundTwoPub)."""
     n, c = bits.shape
     in_race = torch.ones((n,), dtype=F.DTYPE, device=bits.device)
     junction = False
@@ -376,7 +399,7 @@ def run_steps(curve: Curve, generator, pre: Precomputed, bits, ids,
                                                   commit_pub, prev, ids,
                                                   s).all()
         round2.append(pub2)
-        step_deciding = bool(round_three(curve, b).item())
+        step_deciding = bool(round_three(curve, b, mesh).item())
         deciding.append(step_deciding)
         if step_deciding:
             prev = info
@@ -386,22 +409,29 @@ def run_steps(curve: Curve, generator, pre: Precomputed, bits, ids,
 
 
 def _run_metered(curve: Curve, generator, bits, ids, verify: bool, phase,
-                 trackers, tamper) -> AuctionResult:
+                 trackers, tamper, mesh=None) -> AuctionResult:
     """The host loop of one call a round, as the JAX package's
     `run_auction` runs it for per-role times and the tamper hook: each
     prover call is bidder time, each check verifier time, and the first
     failed check ends the auction.  `tamper(phase, step, pub)` gives what
     lands on the board for "commit", "round1" and "round2"; the verifiers
-    and round 3 read the board, the honest provers their own values.  The
-    nonces are drawn in the fused driver's order."""
+    and round 3 read the board, the honest provers their own values.  On a
+    mesh the hook sees the whole message, gathered from every rank, and
+    each rank reads its rows of what it returns.  The nonces are drawn in
+    the fused driver's order."""
     from ..utils.trackers import CATEGORY_BIDDER, CATEGORY_VERIFIER
 
     n, c = bits.shape
+    n_all = n * M.mesh_size(mesh)
     failed = AuctionResult(max_bid=-1, verified=False,
                            deciding_bits=np.zeros(c, np.uint8))
 
     def board(name, step, pub):
-        return tamper(name, step, pub) if tamper is not None else pub
+        if tamper is None:
+            return pub
+        whole = M.gather_bidders(mesh, pub)
+        out = tamper(name, step, whole)
+        return pub if out is whole else M.shard_bidders(mesh, out)
 
     def bidder(name, fn, *args):
         return phase(name, fn, *args, role=CATEGORY_BIDDER)
@@ -411,7 +441,7 @@ def _run_metered(curve: Curve, generator, bits, ids, verify: bool, phase,
         off."""
         if not verify:
             return True
-        return bool(phase(name, fn, *args, role=CATEGORY_VERIFIER).all())
+        return M.all_true(mesh, phase(name, fn, *args, role=CATEGORY_VERIFIER))
 
     commit_pub, commit_sec = bidder("commit", commit, curve, generator, bits,
                                     ids)
@@ -419,7 +449,7 @@ def _run_metered(curve: Curve, generator, bits, ids, verify: bool, phase,
     if not checked("verify_commit", verify_commit, curve, board_commit, ids):
         return failed
     if trackers is not None:
-        trackers.account_commit(n, c)
+        trackers.account_commit(n_all, c)
 
     xr, v = draw_round_one(curve, generator, n, c, bits.device)
     in_race = torch.ones((n,), dtype=F.DTYPE, device=bits.device)
@@ -434,8 +464,9 @@ def _run_metered(curve: Curve, generator, bits, ids, verify: bool, phase,
                        board_pub1, ids, step):
             return failed
         d = bits[:, step] & in_race
-        Y = bidder("avnet", avnet_keys, curve, pub1.X)
-        board_Y = Y if board_pub1 is pub1 else avnet_keys(curve, board_pub1.X)
+        Y = bidder("avnet", avnet_rows, curve, pub1.X, mesh)
+        board_Y = (Y if board_pub1 is pub1
+                   else avnet_rows(curve, board_pub1.X, mesh))
         if not junction:
             pub2, info = bidder("round_two", round_two_stage1, curve,
                                 generator, sec1, pub1, Y, commit_pub,
@@ -455,11 +486,11 @@ def _run_metered(curve: Curve, generator, bits, ids, verify: bool, phase,
         if not ok:
             return failed
         if trackers is not None:
-            trackers.account_step(n, stage2=junction)
+            trackers.account_step(n_all, stage2=junction)
         round1.append(board_pub1)
         round2.append(board_pub2)
         step_deciding = bool(bidder("round_three", round_three, curve,
-                                    board_pub2.b).item())
+                                    board_pub2.b, mesh).item())
         deciding[step] = step_deciding
         if step_deciding:
             in_race = in_race & d
@@ -467,15 +498,22 @@ def _run_metered(curve: Curve, generator, bits, ids, verify: bool, phase,
             prev = info
     return AuctionResult(max_bid=bits_to_int(deciding), verified=True,
                          deciding_bits=deciding,
-                         board=Board(commit=board_commit,
-                                     round1=_stack(round1),
-                                     round2=tuple(round2)))
+                         board=_gather_board(mesh, board_commit,
+                                             _stack(round1), tuple(round2)))
+
+
+def _gather_board(mesh, commit_pub, round1, round2) -> Board:
+    """The whole board from this rank's rows (round one's bidder axis is
+    dim 1)."""
+    commit_pub, round2 = M.gather_bidders(mesh, (commit_pub, round2))
+    return Board(commit=commit_pub, round1=M.gather_bidders(mesh, round1, 1),
+                 round2=round2)
 
 
 def run_auction(curve: Curve, bids, c: int, verify: bool = True,
                 generator: torch.Generator | None = None, device="cuda",
                 phase_times: dict | None = None, times=None, trackers=None,
-                tamper=None) -> AuctionResult:
+                tamper=None, mesh=None) -> AuctionResult:
     """Full SEAL auction for integer bids.  A failed verification gives
     verified=False and max_bid=-1, as in the JAX package.
 
@@ -485,57 +523,69 @@ def run_auction(curve: Curve, bids, c: int, verify: bool = True,
     same generator both publish the same board and draw the same nonces.
 
     generator: the source of every nonce (a fresh, OS-seeded CPU generator
-    when None).  Like the JAX package's PRNG keys, it is not a
-    cryptographic generator.
+    when None; on a mesh rank 0 draws its seed and every rank takes it).
+    Like the JAX package's PRNG keys, it is not a cryptographic generator.
     phase_times: optional dict; each phase's wall time in seconds, taken
     after a device synchronize, is added under the phase's name.  Each
     phase runs in a `torch.profiler` range named `seal.<phase>`.
     times: optional `utils.trackers.TimeTracker`: prover calls accrue to
     the "bidder" category (one batched call serves all n bidders, so one
     bidder's time is the total / n), checks to "verifier" (each proof is
-    checked once, one reference verifier's work).
+    checked once, one reference verifier's work).  On a mesh both are this
+    rank's times.
     trackers: optional `utils.trackers.SealCommTracker`, charged the
     commit and each step's messages.
     tamper: optional hook `tamper(phase, step, pub) -> pub`, phase in
     {"commit", "round1", "round2"} (step None for the commit): what it
     returns lands on the board, as a malicious party would publish it.
+    mesh: optional bidder mesh (`parallel.mesh.make_mesh`,
+    `parallel.distributed.global_mesh`), called on every rank with the same
+    arguments.  The bids are padded with zero bids (honest parties that
+    cannot change the maximum) to a multiple of the mesh size, and the
+    trackers count the padded n.  Every rank returns the same result, with
+    the whole board, equal to the unsharded run's from the same generator.
     """
+    bids = list(bids)
+    if mesh is not None:
+        bids += [0] * (M.pad_bidders(len(bids), mesh.size()) - len(bids))
     if generator is None:
-        generator = torch.Generator()
-        generator.seed()
+        generator = M.new_generator(mesh)
     n = len(bids)
-    bits = torch.as_tensor(bids_to_bits(bids, c), device=device)
-    ids = torch.arange(n, device=device)
+    rows = M.bidder_rows(mesh, n)
+    bits = torch.as_tensor(bids_to_bits(bids, c), device=device)[rows]
+    ids = torch.arange(n, device=device)[rows]
+    if mesh is not None:
+        generator = F.Rows(generator, rows, n)
     phase = phase_runner("seal", phase_times, bits.device, times)
     if times is not None or tamper is not None:
         return _run_metered(curve, generator, bits, ids, verify, phase,
-                            trackers, tamper)
+                            trackers, tamper, mesh)
 
     ok = torch.ones((), dtype=torch.bool, device=bits.device)
     commit_pub, commit_sec = phase("commit", commit, curve, generator, bits, ids)
     if verify:
         ok = ok & phase("verify_commit",
                         lambda: verify_commit(curve, commit_pub, ids).all())
-    pub1, sec1 = phase("round_one", round_one_batch, curve, generator, n, c, ids)
+    pub1, sec1 = phase("round_one", round_one_batch, curve, generator,
+                       bits.shape[0], c, ids)
     if verify:
         ok = ok & phase("verify_round_one",
                         lambda: verify_round_one_batch(curve, pub1, ids).all())
-    Y_all = phase("avnet", avnet_keys_steps, curve, pub1.X)
+    Y_all = phase("avnet", avnet_rows, curve, pub1.X, mesh, 1)
     b01 = phase("b01", _b01, curve, Y_all, pub1.R, sec1.x)
     pre = Precomputed(pub1=pub1, sec1=sec1, Y=Y_all, b0=b01[0], b1=b01[1])
     deciding, ok_steps, round2 = phase("steps", run_steps, curve, generator,
                                        pre, bits, ids, commit_pub, commit_sec,
-                                       verify)
+                                       verify, mesh)
     if trackers is not None:
         trackers.account_commit(n, c)
         stage2 = False
         for bit in deciding:
             trackers.account_step(n, stage2=stage2)
             stage2 = stage2 or bit
-    if verify and not bool((ok & ok_steps).item()):
+    if verify and not M.all_true(mesh, ok & ok_steps):
         return AuctionResult(max_bid=-1, verified=False,
                              deciding_bits=np.zeros(c, np.uint8))
     return AuctionResult(max_bid=bits_to_int(deciding), verified=True,
                          deciding_bits=np.asarray(deciding, np.uint8),
-                         board=Board(commit=commit_pub, round1=pub1,
-                                     round2=round2))
+                         board=_gather_board(mesh, commit_pub, pub1, round2))

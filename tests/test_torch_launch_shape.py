@@ -1,8 +1,8 @@
 """The Python side of the group kernels' launch (mul_comb, dual_mul,
-quad_mul and base_mul_add_glv, several threads a lane): the grid, block and
-dynamic shared memory that `cuda_ec.launch_shape` gives for 1 ... 10,000
-lanes, and the packing of the constant tables to 32-bit words.  Needs no
-card and no JAX."""
+quad_mul, base_mul_add_glv and pt_add, several threads a lane): the grid,
+block and dynamic shared memory that `cuda_ec.launch_shape` gives for 1 ...
+10,000 lanes, and the packing of the constant tables to 32-bit words.
+Needs no card and no JAX."""
 
 import torch
 
@@ -11,9 +11,9 @@ from privacy_auction_tpu_torch.curves import SECP256K1 as C
 from privacy_auction_tpu_torch.ops import cuda_ec
 from privacy_auction_tpu_torch.ops import field as F
 
-# the group kernels of the auctions' path; scalar_mul and base_mul_add are
-# tests/test_torch_launch_shape_ladders64.py
-KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv")
+# the group kernels of the auctions' path, and pt_add; scalar_mul and
+# base_mul_add are tests/test_torch_launch_shape_ladders64.py
+KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv", "pt_add")
 
 
 def _unpack(words: torch.Tensor) -> torch.Tensor:
@@ -44,6 +44,9 @@ def test_group_launch_shape_covers_every_lane_once_and_packing_round_trips():
                 assert blocks <= cuda_ec.SMS or warps == 12
                 assert warps == 4 or -(-lanes // ((warps - 1) * 32 // group)) > cuda_ec.SMS
                 assert smem == cuda_ec.COMB_RING * TABLE and 2 <= cuda_ec.COMB_RING <= 64
+            elif kernel == "pt_add":
+                # one warp; each lane's P and Q as 32-bit words, 96 B a point
+                assert threads == 32 and smem == 2 * per_block * 96
             else:
                 # one warp; dual_mul and quad_mul: the two or four tables of
                 # each lane; the GLV kernel: the two constant tables once, and

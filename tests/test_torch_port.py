@@ -28,6 +28,8 @@ MODULES = [
     "privacy_auction_tpu_torch.ops.ec", "privacy_auction_tpu_torch.ops.field",
     "privacy_auction_tpu_torch.ops.sha256",
     "privacy_auction_tpu_torch.ops.validate",
+    "privacy_auction_tpu_torch.parallel.distributed",
+    "privacy_auction_tpu_torch.parallel.mesh",
     "privacy_auction_tpu_torch.protocols.ccs22",
     "privacy_auction_tpu_torch.protocols.phases",
     "privacy_auction_tpu_torch.protocols.seal",

@@ -9,9 +9,13 @@ default), so that two commits can be timed on one card in one call: run it
 on each checkout in turns (A, B, B, A).  For each kernel row at the lane
 counts the auctions launch it at (SHAPES), on random points and scalars
 from the seed: the mean ms per launch (CUDA events around `reps` launches
-after one untimed launch).
+after one untimed launch), which holds the wrapper's host time where that
+is longer than the kernel's, and the kernel's own device time per launch
+(`torch.profiler`'s CUDA time of the kernel over another `reps` launches,
+the mean over the launches its trace holds: it can drop some), under
+"device_ms".
 
-With --groups (this checkout's kernels only): the six group kernels at
+With --groups (this checkout's kernels only): the seven group kernels at
 each of LANES with each G they are built for (`cuda_ec.GROUPS`: 8 and 4
 threads a lane, 8 and 2 for mul_comb), in turns (8 4 4 8), whatever
 `cuda_ec.launch_shape` would pick, under "groups": {"kernel@lanes": {"8":
@@ -22,7 +26,8 @@ block's ring; RING 64 holds the whole comb table) with each G, in turns
 warps:ring": [ms, ms]}}.
 
 Prints the card's name and power limit and one JSON line {"root", "card",
-"ms": {"row@lanes": ms}, ...}; needs a CUDA device.
+"ms": {"row@lanes": ms}, "device_ms": {"row@lanes": ms}, ...} (with
+--groups also "groups_device_ms"); needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ import sys
 # at CCS22 20x32 and 64x32 (n, nc, 4nc); dual_mul at SEAL 20x32 (2nc) and
 # CCS22 64x32 (2nc); quad_mul's 20x32 proof and commit passes;
 # base_mul_add_glv's 20x32 round-one check.  scalar_mul and base_mul_add
-# (8,192 lanes, and the validator's 8) come last, so that a change to
-# them leaves the launches before every other row as they were.
+# (8,192 lanes, and the validator's 8), then pt_add at the lanes
+# chip_smoke.py checks it at, come last, so that a change to them leaves
+# the launches before every other row as they were.
 SHAPES = (("mul_comb", 16384), ("dual_mul", 8192), ("quad_mul", 2048),
           ("base_mul_add_glv", 8192), ("dual_mul_64", 8192), ("pt_add", 8192),
           ("mul_comb", 20), ("mul_comb", 64), ("mul_comb", 640),
@@ -52,7 +58,8 @@ SHAPES = (("mul_comb", 16384), ("dual_mul", 8192), ("quad_mul", 2048),
           ("quad_mul", 160), ("quad_mul", 320), ("quad_mul", 2560),
           ("quad_mul", 3840), ("base_mul_add_glv", 1280),
           ("scalar_mul", 8192), ("base_mul_add", 8192), ("scalar_mul", 8),
-          ("base_mul_add", 8))
+          ("base_mul_add", 8), ("pt_add", 8), ("pt_add", 2048),
+          ("pt_add", 20480))
 
 
 def main() -> int:
@@ -94,7 +101,7 @@ def main() -> int:
             return lambda: cuda_ec.mul_comb(*cv, table, k, **shape)
         if name == "pt_add":
             P, Q = points(n), points(n)
-            return lambda: cuda_ec.pt_add(*cv, P, Q)
+            return lambda: cuda_ec.pt_add(*cv, P, Q, **shape)
         if name == "scalar_mul":
             P, k = points(n), scalars(n)
             return lambda: cuda_ec.scalar_mul(*cv, P, k, **shape)
@@ -116,6 +123,22 @@ def main() -> int:
         return lambda: cuda_ec.base_mul_add_glv(*cv, *a, s1, s2, flags, g0,
                                                 GLV_WINDOWS, **shape)
 
+    def device_ms(fn, name):
+        """The kernel's device time per launch, from the profiler's trace:
+        the mean over the launches the trace holds (it may drop some);
+        None when it holds none."""
+        kernel = name.removesuffix("_64") + "_kernel"
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.reps):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages() if kernel in e.key]
+        count = sum(e.count for e in found)
+        return (sum(e.device_time_total for e in found) / 1e3 / count
+                if count else None)
+
     def time_ms(fn):
         fn()
         torch.cuda.synchronize()
@@ -129,17 +152,24 @@ def main() -> int:
         return e0.elapsed_time(e1) / args.reps
 
     cuda_ec.build()
-    out = {f"{name}@{n}": time_ms(call(name, n)) for name, n in SHAPES}
-    groups = {}
+    out, dev_out = {}, {}
+    for name, n in SHAPES:
+        fn = call(name, n)
+        out[f"{name}@{n}"] = time_ms(fn)
+        dev_out[f"{name}@{n}"] = device_ms(fn, name)
+    groups, groups_dev = {}, {}
     for n in args.groups:
         for name in cuda_ec.GROUP_KERNELS:
             gs = cuda_ec.GROUPS[name]
             runs = {g: call(name, n, shape=cuda_ec.launch_shape(name, n, group=g))
                     for g in gs}
             ms = {g: [] for g in gs}
+            dev_ms = {g: [] for g in gs}
             for g in gs + gs[::-1]:
                 ms[g].append(time_ms(runs[g]))
+                dev_ms[g].append(device_ms(runs[g], name))
             groups[f"{name}@{n}"] = ms
+            groups_dev[f"{name}@{n}"] = dev_ms
     comb = {}
     variants = [(g, *map(int, v.split(":"))) for v in args.comb
                 for g in cuda_ec.GROUPS["mul_comb"]]
@@ -155,7 +185,9 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     print(json.dumps({"root": args.root, "card": torch.cuda.get_device_name(0),
-                      "ms": out, **({"groups": groups} if groups else {}),
+                      "ms": out, "device_ms": dev_out,
+                      **({"groups": groups, "groups_device_ms": groups_dev}
+                         if groups else {}),
                       **({"comb": comb} if comb else {})}))
     return 0
 
