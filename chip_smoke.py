@@ -53,9 +53,21 @@ package, in these phases; any failure raises and the exit code is non-zero:
    each at both of its threads a lane (8 and 4; `mul_comb` 8 and 2);
 4. verified SEAL auctions at 20x32 and 128x8 bidders x bits from a seed
    (the fused driver; the second cut from 128x32 to 128x8 to leave time
-   for phases 2c and 6b): each must verify and find the plaintext maximum,
-   and each of its four kernels' launch counts must rise during each
-   auction (printed, with the launches by kernel and lane count);
+   for phases 2c and 6b), whose steps replay one CUDA graph a stage: each
+   must verify and find the plaintext maximum, capture a graph for each
+   stage it reaches (Stage2 after a deciding step that is not the last)
+   and replay it for every step of the stage, and launch its four kernels
+   at exactly the lane counts the fused driver's phases give them
+   (`seal_lanes`: `quad_mul` twice a step, for the proof and its check,
+   besides the commitment's two), a graph's launches counted at each
+   replay; it prints the launches by kernel and lane count and, for each
+   graph, its GPU kernels a step (kernel nodes), the seconds of its
+   warm-up step, capture, instantiation and replays, and the device
+   memory its pool took;
+4a. the role-metered SEAL driver at 20x32 from the same seed and bids as
+   the fused 20x32 auction of phase 4: both must verify with the same
+   max_bid and deciding bits and publish the same board, limb for limb;
+   it prints both walls and their phase times;
 4b. the role-metered SEAL auction at 20x8 (cut from 20x32 for the same
    reason; a step's shapes do not depend on c) through the CLI's run function
    (`cli.run_seal`, no warm-up: the build is loaded): it must verify and
@@ -312,6 +324,45 @@ def hub_phase(n: int, c: int, device, memory=None):
     log(f"[hub {n}x{c}] launches by kernel@lanes, all parties "
         f"{json.dumps({f'{k}@{l}': v for (k, l), v in sorted(hub_lanes.items())})}")
     return hub_launches, hub_lanes
+
+
+def seal_lanes(n: int, c: int, deciding) -> dict:
+    """The kernel launches of a fused SEAL auction at n x c (secp256k1,
+    verified), by (kernel, lanes): the commitment's comb (5nc) and PoWFCom
+    (quad_mul 4nc), its check (quad_mul 6nc), round one's comb (4nc) and
+    its check (base_mul_add_glv 2nc), the ciphertext candidates (dual_mul
+    2nc), then a proof and its check a step (quad_mul 8n each before the
+    junction, 16n after it)."""
+    want: dict = {}
+    for key in (("mul_comb", 5 * n * c), ("mul_comb", 4 * n * c),
+                ("quad_mul", 4 * n * c), ("quad_mul", 6 * n * c),
+                ("base_mul_add_glv", 2 * n * c), ("dual_mul", 2 * n * c)):
+        want[key] = want.get(key, 0) + 1
+    stage2 = False
+    for bit in deciding:
+        key = ("quad_mul", 16 * n if stage2 else 8 * n)
+        want[key] = want.get(key, 0) + 2
+        stage2 = stage2 or bool(bit)
+    return want
+
+
+def board_diff(a, b, path="board"):
+    """The first path at which two boards differ (a tensor's limbs, or a
+    message present in one only), or None."""
+    if a is None or b is None:
+        return None if a is None and b is None else path
+    if hasattr(a, "shape"):
+        import torch
+
+        return None if torch.equal(a, b) else path
+    if len(a) != len(b):
+        return path
+    names = getattr(a, "_fields", range(len(a)))
+    for name, x, y in zip(names, a, b):
+        diff = board_diff(x, y, f"{path}.{name}")
+        if diff:
+            return diff
+    return None
 
 
 def _tests_module(name):
@@ -780,9 +831,10 @@ def main() -> int:
     def by_lanes(counts):
         return {f"{k}@{n}": v for (k, n), v in sorted(counts.items())}
 
-    # ---- 4. verified auctions (the main path) -----------------------------------
+    # ---- 4. verified auctions (the main path), their steps on CUDA graphs -------
     auction_launches = {}
     auction_lanes = {}
+    fused_runs = {}
     for n, c in AUCTIONS:
         bids = [rng.randrange(1 << c) for _ in range(n)]
         times = {}
@@ -793,19 +845,71 @@ def main() -> int:
                                device=dev, phase_times=times)
         wall = time.perf_counter() - t0
         counts = dict(cuda_ec.launches)
+        graphs = dict(seal.last_graphs)
+        fused_runs[(n, c)] = (bids, res, wall, times)
         if not res.verified or res.max_bid != max(bids):
             raise AssertionError(f"SEAL {n}x{c}: verified={res.verified} "
                                  f"max_bid={res.max_bid} != {max(bids)}")
         idle = [k for k in SEAL_KERNELS if counts[k] == 0]
         if idle:
             raise AssertionError(f"SEAL {n}x{c}: kernels {idle} never launched")
+        bits = res.deciding_bits.tolist()
+        first = bits.index(1) if 1 in bits else c - 1
+        want = {"stage1": first + 1}
+        if first < c - 1:
+            want["stage2"] = c - 1 - first
+        if {k: g["replays"] for k, g in graphs.items()} != want:
+            raise AssertionError(
+                f"SEAL {n}x{c}: graph replays "
+                f"{ {k: g['replays'] for k, g in graphs.items()} }, want "
+                f"{want} (deciding bits {bits}): one capture a stage reached, "
+                "every step of the stage a replay")
+        want_lanes = seal_lanes(n, c, bits)
+        if cuda_ec.launch_lanes != want_lanes:
+            raise AssertionError(
+                f"SEAL {n}x{c}: launches {by_lanes(cuda_ec.launch_lanes)}, "
+                f"want the fused driver's {by_lanes(want_lanes)}")
         auction_launches[(n, c)] = counts
         auction_lanes[(n, c)] = dict(cuda_ec.launch_lanes)
         log(f"[seal {n}x{c}] verified, max_bid={res.max_bid}, wall {wall:.3f} s; "
             "phases " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()))
+        for stage, g in graphs.items():
+            log(f"[seal {n}x{c}] {stage} graph: {g['kernels']} GPU kernels a "
+                f"step (kernel nodes); warm-up step {g['warmup_s']:.3f} s, "
+                f"capture {g['capture_s']:.3f} s, instantiate "
+                f"{g['instantiate_s']:.3f} s, {g['replays']} replays "
+                f"{g['replay_s']:.3f} s ({g['replay_s'] / g['replays']:.4f} s "
+                f"each, with the flag read); its pool took "
+                f"{g['memory_bytes'] / 2**20:.1f} MiB of device memory; a "
+                f"replay's launches {json.dumps(by_lanes(g['launches']))}")
         log(f"[seal {n}x{c}] launches {json.dumps(counts)}")
         log(f"[seal {n}x{c}] launches by kernel@lanes "
-            f"{json.dumps(by_lanes(cuda_ec.launch_lanes))}")
+            f"{json.dumps(by_lanes(cuda_ec.launch_lanes))} = the fused "
+            "driver's (quad_mul twice a step, the commitment's twice)")
+
+    # ---- 4a. the graphs' board against the role-metered driver's ------------------
+    n, c = AUCTIONS[0]
+    bids, fused, fused_wall, fused_times = fused_runs[(n, c)]
+    times = {}
+    t0 = time.perf_counter()
+    res = seal.run_auction(C, bids, c, verify=True,
+                           generator=torch.Generator().manual_seed(SEED + n),
+                           device=dev, phase_times=times, times=T.TimeTracker())
+    wall = time.perf_counter() - t0
+    diff = board_diff(fused.board, res.board)
+    if (not res.verified or res.max_bid != fused.max_bid
+            or res.deciding_bits.tolist() != fused.deciding_bits.tolist()
+            or diff):
+        raise AssertionError(
+            f"SEAL {n}x{c}: the metered driver gave verified={res.verified}, "
+            f"max_bid={res.max_bid}, deciding {res.deciding_bits.tolist()}; "
+            f"the graphs {fused.max_bid}, {fused.deciding_bits.tolist()}; "
+            f"boards differ at {diff}")
+    log(f"[seal {n}x{c}] the role-metered driver from the same seed: verified, "
+        f"max_bid={res.max_bid}, the same deciding bits and board, limb for "
+        f"limb; wall {wall:.3f} s against the graphs' {fused_wall:.3f} s "
+        f"(steps {fused_times['steps']:.3f} s); metered phases "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()))
 
     # ---- 4b. the role-metered SEAL auction, through the CLI ----------------------
     n, c = SEAL_METERED

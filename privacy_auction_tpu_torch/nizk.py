@@ -20,9 +20,9 @@ explicitly; the form that takes a `torch.Generator` draws them with
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .curves import Curve
@@ -51,19 +51,26 @@ def _le_bytes(v, nbytes: int):
     return lo.to(torch.uint8)
 
 
-def _generator_octets(curve: Curve) -> np.ndarray:
+@functools.lru_cache(maxsize=None)
+def _octets(data: bytes, device: torch.device) -> torch.Tensor:
+    """Constant transcript bytes as a cached uint8 tensor on `device` (never
+    written to)."""
+    return torch.tensor(list(data), dtype=torch.uint8).to(device)
+
+
+def _generator_octets(curve: Curve) -> bytes:
     gx, gy = curve.host.g
-    return np.array(list(b"\x04" + gx.to_bytes(32, "big") + gy.to_bytes(32, "big")),
-                    np.uint8)
+    return b"\x04" + gx.to_bytes(32, "big") + gy.to_bytes(32, "big")
 
 
 def fs_challenge(curve: Curve, points, ids, domain: bytes = b"", steps=None):
     """Fiat-Shamir challenge scalar from an ordered point list + prover id.
 
     points: sequence of (..., 3, L) projective points (broadcast-compatible
-    batches); ids: (...,) integer tensor; steps: optional integer tensor
-    bound as 4 LE bytes after the id.  All points are affinized in one
-    batched inversion.  Returns (..., L) scalars mod n.
+    batches); ids: (...,) integer tensor; steps: optional integer (a tensor
+    on the points' device reads nothing back to the host, as a CUDA graph
+    needs) bound as 4 LE bytes after the id.  All points are affinized in
+    one batched inversion.  Returns (..., L) scalars mod n.
     """
     shape = torch.broadcast_shapes(*[p.shape for p in points])
     stacked = torch.stack([p.expand(shape) for p in points], dim=-3)
@@ -72,9 +79,9 @@ def fs_challenge(curve: Curve, points, ids, domain: bytes = b"", steps=None):
     dev = octets.device
     parts = []
     if domain:
-        tag = torch.tensor(list(domain), dtype=torch.uint8, device=dev)
+        tag = _octets(domain, dev)
         parts.append(tag.expand(batch + tag.shape))
-    g = torch.as_tensor(_generator_octets(curve), device=dev)
+    g = _octets(_generator_octets(curve), dev)
     parts += [g.expand(batch + g.shape),
               octets.reshape(batch + (octets.shape[-2] * 65,)),
               _le_bytes(torch.as_tensor(ids, device=dev), 8).expand(batch + (8,))]

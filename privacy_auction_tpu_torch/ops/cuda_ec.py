@@ -5,12 +5,13 @@ The kernels are built with `nvcc` for sm_90a at first use into
 the stream go as `c_void_p`, counts as `c_int`.  Each wrapper checks
 device, dtype and shapes, makes its inputs contiguous, allocates the output
 with `torch.empty`, launches on the current stream, raises if the launcher
-returns a CUDA error, and adds one to its launch count.  There is no
-fallback: a CPU tensor, a missing `nvcc` or a failed build raises.  The
-kernels hard-code secp256k1's p and its fold constant (`csrc/ec_device.cuh`),
-so each wrapper takes the curve first and refuses any other (`CURVE`);
-`ec.py` routes every other curve (P-256) to the plain path before it gets
-here.
+returns a CUDA error, and adds one to its launch count (a CUDA graph
+adds its captured launches at each replay: `recorded`, `add_launches`).
+There is no fallback: a CPU tensor, a missing `nvcc` or a failed build
+raises.  The kernels hard-code secp256k1's p and its fold constant
+(`csrc/ec_device.cuh`), so each wrapper takes the curve first and refuses
+any other (`CURVE`); `ec.py` routes every other curve (P-256) to the plain
+path before it gets here.
 
 | wrapper            | kernel                     | TPU kernel it replaces                  |
 | mul_comb           | mul_comb_kernel<G>         | _mul_base_kernel (pallas_ec.py:538)     |
@@ -31,6 +32,7 @@ G and phi(G)) are packed to 32-bit words once per tensor and kept.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -185,10 +187,35 @@ def reset_launches():
     launch_lanes.clear()
 
 
-def _count(row: str, n: int):
+def _count(row: str, n: int, times: int = 1):
     if n:
-        launches[row] += 1
-        launch_lanes[(row, n)] = launch_lanes.get((row, n), 0) + 1
+        launches[row] += times
+        launch_lanes[(row, n)] = launch_lanes.get((row, n), 0) + times
+
+
+@contextlib.contextmanager
+def recorded():
+    """Takes the launches made inside out of the counts and gives them, by
+    (row, lanes), in the dict it yields: the launches of a CUDA graph's
+    capture, which `add_launches` counts at each replay, or of a warm-up
+    run, which are not counted."""
+    before = dict(launch_lanes)
+    seen: dict[tuple[str, int], int] = {}
+    try:
+        yield seen
+    finally:
+        for key, v in launch_lanes.items():
+            if v != before.get(key, 0):
+                seen[key] = v - before.get(key, 0)
+        reset_launches()
+        for (row, n), v in before.items():
+            _count(row, n, v)
+
+
+def add_launches(seen: dict):
+    """Count the launches of `recorded`'s dict once more (a graph's replay)."""
+    for (row, n), v in seen.items():
+        _count(row, n, v)
 
 
 def _nvcc() -> str:
@@ -246,6 +273,41 @@ def build() -> Build:
         fn.restype = I
     _build = Build(lib, lib_path, seconds, log_path.read_text())
     return _build
+
+
+# --------------------------------------------------------------------------
+# CUDA graphs: kernel nodes, instantiation timed apart from the capture
+# --------------------------------------------------------------------------
+
+CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def instantiate(graph) -> tuple[int, float]:
+    """Instantiate a graph captured with `keep_graph=True`: (its kernel
+    nodes, read through the driver API, and the seconds the instantiation
+    took)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_void_p),
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    _check("cuGraphGetNodes", cu.cuGraphGetNodes(handle, None,
+                                                 ctypes.byref(count)))
+    nodes = (ctypes.c_void_p * count.value)()
+    _check("cuGraphGetNodes", cu.cuGraphGetNodes(handle, nodes,
+                                                 ctypes.byref(count)))
+    kind = ctypes.c_int()
+    kernels = 0
+    for node in nodes:
+        _check("cuGraphNodeGetType",
+               cu.cuGraphNodeGetType(node, ctypes.byref(kind)))
+        kernels += kind.value == CU_GRAPH_NODE_TYPE_KERNEL
+    t0 = time.perf_counter()
+    graph.instantiate()
+    return kernels, time.perf_counter() - t0
 
 
 # --------------------------------------------------------------------------
@@ -401,7 +463,7 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def _check(name: str, err: int):
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+        raise RuntimeError(f"{name}: CUDA error {err}")
 
 
 # --------------------------------------------------------------------------

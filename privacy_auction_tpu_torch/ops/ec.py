@@ -51,9 +51,7 @@ def infinity(device, batch_shape=()) -> torch.Tensor:
 
 def from_affine(x, y):
     """Affine limb coordinates -> projective point (Z=1)."""
-    z = torch.zeros_like(x)
-    z[..., 0] = 1
-    return torch.stack([x, y, z], dim=-2)
+    return torch.stack([x, y, F.const(1, x.device, x.shape[:-1])], dim=-2)
 
 
 def generator(curve: Curve, device, batch_shape=()) -> torch.Tensor:
@@ -551,7 +549,16 @@ def serialize_uncompressed(curve: Curve, P):
     """SEC1 uncompressed encoding (..., 65) uint8: 0x04 || X_be || Y_be;
     infinity is 65 zero bytes, as in the JAX package."""
     x, y = to_affine(curve, P)
-    prefix = torch.where(is_infinity(P), 0, 4).to(torch.uint8).unsqueeze(-1)
+    return serialize_affine(x, y, is_infinity(P))
+
+
+def serialize_affine(x, y, inf=None):
+    """`serialize_uncompressed` of already-affine coordinates x, y (..., 16)
+    -> (..., 65) uint8: the prefix byte is 0 where `inf` (by default where
+    x = y = 0), else 4."""
+    if inf is None:
+        inf = F.is_zero(x) & F.is_zero(y)
+    prefix = torch.where(inf, 0, 4).to(torch.uint8).unsqueeze(-1)
     return torch.cat([prefix, F.to_bytes_be(x), F.to_bytes_be(y)], dim=-1)
 
 

@@ -514,12 +514,10 @@ class Rows(NamedTuple):
     total: int
 
 
-def random(spec: FieldSpec, generator, shape=(), device=None,
-           bidder_dim: int = 1):
-    """Uniform field elements: `random_words(spec)` words each, drawn from
-    `generator` on its own device, then moved to `device` (default: the
-    generator's), so one seeded CPU generator gives the same elements on
-    every device.  With `Rows` of a generator, shape[bidder_dim] is the
+def draw_words(spec: FieldSpec, generator, shape=(), bidder_dim: int = 1):
+    """The random words `random` reduces for `shape`: (*shape,
+    random_words(spec)) int64 in [0, 2**32), drawn from `generator` and left
+    on its device.  With `Rows` of a generator, shape[bidder_dim] is the
     rank's row count: the draw is made with `total` there and the rows
     kept."""
     if isinstance(generator, Rows):
@@ -528,12 +526,21 @@ def random(spec: FieldSpec, generator, shape=(), device=None,
             raise ValueError(f"random: dim {bidder_dim} of {shape} is not the "
                              f"rank's {rows.stop - rows.start} bidder rows")
         full = shape[:bidder_dim] + (generator.total,) + shape[bidder_dim + 1:]
-        return random(spec, generator.generator, full, device).narrow(
+        return draw_words(spec, generator.generator, full).narrow(
             bidder_dim, rows.start, rows.stop - rows.start)
-    words = torch.randint(0, 1 << 32, tuple(shape) + (random_words(spec),),
-                          generator=generator, dtype=DTYPE,
-                          device=generator.device)
-    return from_random_bits(spec, words.to(device or generator.device))
+    return torch.randint(0, 1 << 32, tuple(shape) + (random_words(spec),),
+                         generator=generator, dtype=DTYPE,
+                         device=generator.device)
+
+
+def random(spec: FieldSpec, generator, shape=(), device=None,
+           bidder_dim: int = 1):
+    """Uniform field elements: `random_words(spec)` words each, drawn from
+    `generator` on its own device (`draw_words`), then moved to `device`
+    (default: the generator's), so one seeded CPU generator gives the same
+    elements on every device."""
+    words = draw_words(spec, generator, shape, bidder_dim)
+    return from_random_bits(spec, words.to(device or words.device))
 
 
 # --------------------------------------------------------------------------

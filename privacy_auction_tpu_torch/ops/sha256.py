@@ -2,7 +2,8 @@
 
 Counterpart of `privacy_auction_tpu/ops/sha256.py`: one hash state per
 batch lane, every lane hashing a message of the same static length, so the
-padding is a host constant and there is no data-dependent control flow.
+padding is a constant, kept on each device it is used on, and there is no
+data-dependent control flow (a CUDA graph can capture a call).
 32-bit words are held in int64 and masked after each sum; a rotation reads
 the low half of the word duplicated into 64 bits.
 """
@@ -67,7 +68,6 @@ def _compress(state, w):
     return [(x + y) & M32 for x, y in zip(state, (a, b, c, d, e, f, g, h))]
 
 
-@functools.lru_cache(maxsize=None)
 def _padding_bytes(msg_len: int) -> np.ndarray:
     """Static SHA-256 padding for a message of msg_len bytes."""
     pad_len = (56 - (msg_len + 1)) % 64
@@ -79,12 +79,19 @@ def _padding_bytes(msg_len: int) -> np.ndarray:
     return pad
 
 
+@functools.lru_cache(maxsize=None)
+def _padding(msg_len: int, device: torch.device) -> torch.Tensor:
+    """`_padding_bytes` as a cached uint8 tensor on `device` (never
+    written to)."""
+    return torch.from_numpy(_padding_bytes(msg_len)).to(device)
+
+
 def sha256(msg: torch.Tensor) -> torch.Tensor:
     """SHA-256 of byte messages: (..., L) uint8 -> (..., 8) int64 digest words
     (big-endian H0..H7, each in [0, 2**32))."""
     L = msg.shape[-1]
     batch = msg.shape[:-1]
-    pad = torch.as_tensor(_padding_bytes(L), device=msg.device)
+    pad = _padding(L, msg.device)
     full = torch.cat([msg, pad.expand(batch + pad.shape)], dim=-1).to(torch.int64)
     nblocks = full.shape[-1] // 64
     by = full.reshape(batch + (nblocks, 16, 4))

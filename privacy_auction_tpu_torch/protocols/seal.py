@@ -12,8 +12,18 @@ one call a round and step, each prover call timed as bidder time and each
 check as verifier time, the messages passed through a board hook, and the
 first failed check ending the auction.
 
-The steps are host loops.  Stage selection branches on the public
-junction flag, read with one `.item()` per step; the per-bidder work stays
+A fused step is one function on tensors, `step_body`, the counterpart of
+the JAX package's scan body (`_scan_steps`): it reads the step's entries of
+the precomputed streams through a step index tensor and the carried state,
+and reads nothing back to the host.  On a CUDA device without a mesh the
+steps are one program on the card, as the JAX scan is: each stage's steps
+replay one captured CUDA graph of the body (Stage1 before the junction,
+Stage2 after it; the two branches of the JAX `lax.cond`), and the host
+draws each step's nonces, copies them in and reads the deciding flag once
+a step.  On the CPU, and on a mesh (its gloo collectives cannot be
+captured), the same body runs uncaptured, step by step.  The role-metered
+driver stays a host loop of eager calls, as in the JAX package.  Stage
+selection branches on the public junction flag; the per-bidder work stays
 branchless.  Every call is one batched computation over all n bidders
 (and all c bits or steps where the phase allows).
 
@@ -34,14 +44,16 @@ run's, bit for bit.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import nizk
 from ..curves import Curve
-from ..ops import ec
+from ..ops import cuda_ec, ec
 from ..ops import field as F
 from ..parallel import mesh as M
 from .phases import phase_runner
@@ -144,15 +156,28 @@ def _split(pok: nizk.PoKDLog):
 # phases
 # --------------------------------------------------------------------------
 
-def commit(curve: Curve, generator, bid_bits, ids):
+class CommitDraws(NamedTuple):
+    """The commit phase's nonces, each (k, n, c, L)."""
+
+    ab: torch.Tensor   # k = 2: the secrets alpha, beta
+    v: torch.Tensor    # k = 2: the PoKDLogs' nonces
+    r: torch.Tensor    # k = nizk.POWFCOM_NONCES: the PoWFCom's
+
+
+def draw_commit(curve: Curve, generator, n: int, c: int, device) -> CommitDraws:
+    return CommitDraws(*(F.random(curve.fn, generator, (k, n, c), device)
+                         for k in (2, 2, nizk.POWFCOM_NONCES)))
+
+
+def commit_from(curve: Curve, draws: CommitDraws, bid_bits, ids):
     """Commit phase for all (bidder, bit): phi = g^(alpha*beta + bit),
     A = g^alpha, B = g^beta, PoKDLog(A), PoKDLog(B), PoWFCom; the bit index
     is bound into every transcript.  bid_bits (n, c) in {0,1}, MSB first."""
     fn = curve.fn
     n, c = bid_bits.shape
     dev = bid_bits.device
-    alpha, beta = F.random(fn, generator, (2, n, c), dev)
-    v = F.random(fn, generator, (2, n, c), dev)
+    alpha, beta = draws.ab
+    v = draws.v
     bit_limbs = torch.zeros((n, c, LIMBS), dtype=F.DTYPE, device=dev)
     bit_limbs[..., 0] = bid_bits
     exp_phi = F.add(fn, F.mul(fn, alpha, beta), bit_limbs)
@@ -163,11 +188,18 @@ def commit(curve: Curve, generator, bid_bits, ids):
     pok_a, pok_b = _split(nizk.gen_pokdlog_from(
         curve, v, pts[3:5], torch.stack([A, B]), torch.stack([alpha, beta]),
         ids_nc.expand(2, n, c), steps_nc.expand(2, n, c)))
-    powf = nizk.gen_powfcom(curve, generator, phi, A, B, alpha, bid_bits,
-                            ids_nc, steps_nc)
+    powf = nizk.gen_powfcom_from(curve, draws.r, phi, A, B, alpha, bid_bits,
+                                 ids_nc, steps_nc)
     return (CommitmentPub(phi=phi, A=A, B=B, pok_a=pok_a, pok_b=pok_b,
                           powf=powf),
             CommitmentSec(alpha=alpha, beta=beta))
+
+
+def commit(curve: Curve, generator, bid_bits, ids):
+    """`commit_from` with its nonces drawn from `generator`."""
+    n, c = bid_bits.shape
+    return commit_from(curve, draw_commit(curve, generator, n, c,
+                                          bid_bits.device), bid_bits, ids)
 
 
 def verify_commit(curve: Curve, pub: CommitmentPub, ids):
@@ -265,59 +297,98 @@ def _ciphertext(curve: Curve, Y, R, x, d):
     return ec.select(d == 0, b0, b1)
 
 
-def round_two_stage1(curve: Curve, generator, sec: RoundOneSec,
-                     pub: RoundOnePub, Y, commit_pub: CommitmentPub,
-                     commit_sec: CommitmentSec, d, ids, step: int, b=None):
+def _take(t, step, dim: int = 0):
+    """Entry `step` of t along `dim`: an int, or an integer tensor on t's
+    device (one element), read there without a host read."""
+    if isinstance(step, torch.Tensor):
+        return t.index_select(dim, step.reshape(1)).squeeze(dim)
+    return t.select(dim, step)
+
+
+def round_two_stage1_from(curve: Curve, r, sec: RoundOneSec,
+                          pub: RoundOnePub, Y, commit_pub: CommitmentPub,
+                          commit_sec: CommitmentSec, d, ids, step, b=None):
     """Round 2 before the junction: the ciphertexts (computed here unless
-    given) and their Stage1 proof.  sec, pub: this step's round-1 secrets
-    and keys; Y: its AV-net keys; d (n,): the effective bits.  Returns
-    (RoundTwoPub, StepInfo)."""
+    given) and their Stage1 proof from its nonces r (STAGE1_NONCES, n, L).
+    sec, pub: this step's round-1 secrets and keys; Y: its AV-net keys;
+    d (n,): the effective bits; step: an int or a one-element device
+    tensor.  Returns (RoundTwoPub, StepInfo)."""
     if b is None:
         b = _ciphertext(curve, Y, pub.R, sec.x, d)
-    proof = nizk.gen_powfstage1(
-        curve, generator, pub.X, Y, pub.R, commit_pub.phi[:, step],
-        commit_pub.A[:, step], commit_pub.B[:, step], sec.x,
-        commit_sec.alpha[:, step], d, ids, step, b)
+    proof = nizk.gen_powfstage1_from(
+        curve, r, pub.X, Y, pub.R, _take(commit_pub.phi, step, 1),
+        _take(commit_pub.A, step, 1), _take(commit_pub.B, step, 1), sec.x,
+        _take(commit_sec.alpha, step, 1), d, ids, step, b)
     return (RoundTwoPub(b=b, proof1=proof, proof2=None),
             StepInfo(X=pub.X, R=pub.R, Y=Y, b=b, x=sec.x, d=d))
 
 
+def _proof_nonces(stage2: bool) -> int:
+    """The nonces a lane's Stage1 or Stage2 proof takes."""
+    return nizk.STAGE2_NONCES if stage2 else nizk.STAGE1_NONCES
+
+
+def _stage_nonces(curve: Curve, generator, stage2: bool, x):
+    return F.random(curve.fn, generator, (_proof_nonces(stage2),)
+                    + x.shape[:-1], x.device)
+
+
+def round_two_stage1(curve: Curve, generator, sec: RoundOneSec,
+                     pub: RoundOnePub, Y, commit_pub: CommitmentPub,
+                     commit_sec: CommitmentSec, d, ids, step, b=None):
+    """`round_two_stage1_from` with its nonces drawn from `generator`."""
+    return round_two_stage1_from(
+        curve, _stage_nonces(curve, generator, False, sec.x), sec, pub, Y,
+        commit_pub, commit_sec, d, ids, step, b)
+
+
 def _stage2_points(pub: RoundOnePub, Y, commit_pub: CommitmentPub,
-                   prev: StepInfo, step: int):
+                   prev: StepInfo, step):
     return dict(Xi=pub.X, Ri=pub.R, Yi=Y, Bj=prev.b, Xj=prev.X, Rj=prev.R,
-                Yj=prev.Y, Ci=commit_pub.phi[:, step], A=commit_pub.A[:, step],
-                B=commit_pub.B[:, step])
+                Yj=prev.Y, Ci=_take(commit_pub.phi, step, 1),
+                A=_take(commit_pub.A, step, 1), B=_take(commit_pub.B, step, 1))
+
+
+def round_two_stage2_from(curve: Curve, r, sec: RoundOneSec,
+                          pub: RoundOnePub, Y, commit_pub: CommitmentPub,
+                          commit_sec: CommitmentSec, d, prev: StepInfo, ids,
+                          step, b=None):
+    """Round 2 after the junction: the ciphertexts and their Stage2 proof
+    from its nonces r (STAGE2_NONCES, n, L) against prev, the last deciding
+    step (its x and d are the prover's own secrets).  Returns
+    (RoundTwoPub, StepInfo)."""
+    if b is None:
+        b = _ciphertext(curve, Y, pub.R, sec.x, d)
+    proof = nizk.gen_powfstage2_from(
+        curve, r, _stage2_points(pub, Y, commit_pub, prev, step), sec.x,
+        prev.x, _take(commit_sec.alpha, step, 1), d, prev.d, ids, step, b)
+    return (RoundTwoPub(b=b, proof1=None, proof2=proof),
+            StepInfo(X=pub.X, R=pub.R, Y=Y, b=b, x=sec.x, d=d))
 
 
 def round_two_stage2(curve: Curve, generator, sec: RoundOneSec,
                      pub: RoundOnePub, Y, commit_pub: CommitmentPub,
                      commit_sec: CommitmentSec, d, prev: StepInfo, ids,
-                     step: int, b=None):
-    """Round 2 after the junction: the ciphertexts and their Stage2 proof
-    against prev, the last deciding step (its x and d are the prover's
-    own secrets).  Returns (RoundTwoPub, StepInfo)."""
-    if b is None:
-        b = _ciphertext(curve, Y, pub.R, sec.x, d)
-    proof = nizk.gen_powfstage2(
-        curve, generator, _stage2_points(pub, Y, commit_pub, prev, step),
-        sec.x, prev.x, commit_sec.alpha[:, step], d, prev.d, ids, step, b)
-    return (RoundTwoPub(b=b, proof1=None, proof2=proof),
-            StepInfo(X=pub.X, R=pub.R, Y=Y, b=b, x=sec.x, d=d))
+                     step, b=None):
+    """`round_two_stage2_from` with its nonces drawn from `generator`."""
+    return round_two_stage2_from(
+        curve, _stage_nonces(curve, generator, True, sec.x), sec, pub, Y,
+        commit_pub, commit_sec, d, prev, ids, step, b)
 
 
 def verify_round_two_stage1(curve: Curve, pub2: RoundTwoPub,
                             pub1: RoundOnePub, Y, commit_pub: CommitmentPub,
-                            ids, step: int):
+                            ids, step):
     """-> (n,) bool."""
     return nizk.ver_powfstage1(
         curve, pub2.proof1, pub2.b, pub1.X, Y, pub1.R,
-        commit_pub.phi[:, step], commit_pub.A[:, step],
-        commit_pub.B[:, step], ids, step)
+        _take(commit_pub.phi, step, 1), _take(commit_pub.A, step, 1),
+        _take(commit_pub.B, step, 1), ids, step)
 
 
 def verify_round_two_stage2(curve: Curve, pub2: RoundTwoPub,
                             pub1: RoundOnePub, Y, commit_pub: CommitmentPub,
-                            prev: StepInfo, ids, step: int):
+                            prev: StepInfo, ids, step):
     """-> (n,) bool."""
     pts = dict(_stage2_points(pub1, Y, commit_pub, prev, step), Bi=pub2.b)
     return nizk.ver_powfstage2(curve, pub2.proof2, pts, ids, step)
@@ -335,10 +406,10 @@ def round_three(curve: Curve, b, mesh=None):
 # --------------------------------------------------------------------------
 
 def _at(tree, i):
-    """Entry i along the leading axis of every tensor of a (nested)
-    NamedTuple."""
+    """Entry i (an int or a one-element device tensor) along the leading
+    axis of every tensor of a (nested) NamedTuple."""
     if isinstance(tree, torch.Tensor):
-        return tree[i]
+        return _take(tree, i)
     return type(tree)(*(_at(t, i) for t in tree))
 
 
@@ -358,6 +429,19 @@ def bits_to_int(deciding) -> int:
     return max_bid
 
 
+def dummy_step_info(n: int, device) -> StepInfo:
+    """The previous-step state before any deciding step (the JAX package's
+    `_dummy_step_info`): points at infinity, zero key and bits."""
+    inf = ec.infinity(device, (n,))
+    zeros = torch.zeros((n, LIMBS), dtype=F.DTYPE, device=device)
+    return StepInfo(X=inf, R=inf, Y=inf, b=inf, x=zeros,
+                    d=torch.zeros((n,), dtype=F.DTYPE, device=device))
+
+
+def _where(cond, new: StepInfo, old: StepInfo) -> StepInfo:
+    return StepInfo(*(torch.where(cond, a, b) for a, b in zip(new, old)))
+
+
 class Precomputed(NamedTuple):
     """The state-independent streams of all c steps (leading axis c)."""
 
@@ -368,44 +452,216 @@ class Precomputed(NamedTuple):
     b1: torch.Tensor    # (c, n, 3, L) R^x
 
 
+def step_body(curve: Curve, r, step, bits, ids, pre: Precomputed,
+              commit_pub: CommitmentPub, commit_sec: CommitmentSec, in_race,
+              prev: StepInfo, stage2: bool, verify: bool, mesh=None):
+    """One fused auction step on tensors, the counterpart of the JAX
+    package's scan body (`_scan_steps`): select the ciphertext by the
+    effective bit, generate (and verify) the Stage1 or Stage2 proof from
+    its nonces r, veto-sum, and carry the race and the last deciding
+    step's state.
+
+    step: the step index, a one-element integer tensor on the device (or
+    an int); the step's entries of `pre`, `bits` (n, c) and the
+    commitments are read through it, so nothing is read back to the host
+    and a CUDA graph of the body serves every step of its stage.  in_race
+    (n,), prev: the carried state (`dummy_step_info` before the first
+    deciding step; Stage1 does not read it).  Draws nothing.  Returns
+    (RoundTwoPub, new in_race, new prev, deciding () bool, ok () bool);
+    in_race and prev take the step's values only where it decided, as
+    the JAX body's `jnp.where`s do, and ok is True without `verify`."""
+    d = _take(bits, step, 1) & in_race
+    b = ec.select(d == 0, _take(pre.b0, step), _take(pre.b1, step))
+    pub1, sec1, Y = _at(pre.pub1, step), _at(pre.sec1, step), _take(pre.Y, step)
+    if stage2:
+        pub2, info = round_two_stage2_from(curve, r, sec1, pub1, Y, commit_pub,
+                                           commit_sec, d, prev, ids, step, b)
+    else:
+        pub2, info = round_two_stage1_from(curve, r, sec1, pub1, Y, commit_pub,
+                                           commit_sec, d, ids, step, b)
+    if not verify:
+        ok = torch.ones((), dtype=torch.bool, device=b.device)
+    elif stage2:
+        ok = verify_round_two_stage2(curve, pub2, pub1, Y, commit_pub, prev,
+                                     ids, step).all()
+    else:
+        ok = verify_round_two_stage1(curve, pub2, pub1, Y, commit_pub, ids,
+                                     step).all()
+    deciding = round_three(curve, b, mesh)
+    return (pub2, torch.where(deciding, in_race & d, in_race),
+            _where(deciding, info, prev), deciding, ok)
+
+
+# What the CUDA graphs of the last fused SEAL auction on a card did, by
+# stage ("stage1", "stage2"): the warm-up step's, the capture's and the
+# instantiation's seconds, kernel nodes (GPU kernels a step), the device
+# memory the graph pool took (bytes), replays and their seconds (each
+# with its flag read), and each replay's kernel launches by (kernel,
+# lanes).  Replaced at each such auction; `_Steps` writes it.
+last_graphs: dict[str, dict] = {}
+
+
+class _Steps:
+    """The fused driver's steps over persistent buffers: the board's round
+    two ((c, ...) buffers written at the step index), the carried in_race,
+    prev and ok, the deciding bits, and what a step takes from the host
+    (its index and the stage proof's random words).  `run(stage2)` is one
+    step of `step_body` on them.  With `graphs`, each stage's steps replay
+    one CUDA graph of `run`, captured at the stage's first step."""
+
+    def __init__(self, curve: Curve, pre: Precomputed, bits, ids,
+                 commit_pub: CommitmentPub, commit_sec: CommitmentSec,
+                 verify: bool, mesh, graphs: bool):
+        n, c = bits.shape
+        dev = bits.device
+        self.curve, self.pre, self.bits, self.ids = curve, pre, bits, ids
+        self.commit_pub, self.commit_sec = commit_pub, commit_sec
+        self.verify, self.mesh = verify, mesh
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.in_race = torch.ones((n,), dtype=F.DTYPE, device=dev)
+        self.prev = StepInfo(*(t.clone() for t in dummy_step_info(n, dev)))
+        self.ok = torch.ones((), dtype=torch.bool, device=dev)
+        self.deciding = torch.zeros((c,), dtype=torch.bool, device=dev)
+        self.b = torch.empty((c, n, 3, LIMBS), dtype=F.DTYPE, device=dev)
+        self.proofs = {}   # by stage: the proof's fields, each (c, n, ...)
+        self.words = {}    # by stage: the nonces' random words
+        self.graphs = {} if graphs else None
+        self.pool = None
+
+    def run(self, stage2: bool):
+        """One step, its index in `step` and its nonces' words in
+        `words[stage2]`, into the buffers; reads nothing back."""
+        r = F.from_random_bits(self.curve.fn, self.words[stage2])
+        pub2, race, prev, deciding, ok = step_body(
+            self.curve, r, self.step, self.bits, self.ids, self.pre,
+            self.commit_pub, self.commit_sec, self.in_race, self.prev, stage2,
+            self.verify, self.mesh)
+        at = self.step.reshape(1)
+        self.in_race.copy_(race)
+        for buf, t in zip(self.prev, prev):
+            buf.copy_(t)
+        self.ok.logical_and_(ok)
+        self.deciding.index_copy_(0, at, deciding.reshape(1))
+        self.b.index_copy_(0, at, pub2.b.unsqueeze(0))
+        for buf, t in zip(self.proofs[stage2], pub2.proof2 if stage2
+                          else pub2.proof1):
+            buf.index_copy_(0, at, t.unsqueeze(0))
+
+    def _inputs(self, stage2: bool, words):
+        """Stage buffers made on the stage's first step (never inside a
+        capture), then the step's words copied in."""
+        if stage2 not in self.proofs:
+            c, n = self.b.shape[:2]
+            cls = nizk.PoWFStage2 if stage2 else nizk.PoWFStage1
+            points = 16 if stage2 else 8
+            self.proofs[stage2] = cls(*(
+                torch.empty((c, n, 3, LIMBS) if i < points else (c, n, LIMBS),
+                            dtype=F.DTYPE, device=self.b.device)
+                for i in range(len(cls._fields))))
+            self.words[stage2] = torch.empty(words.shape, dtype=words.dtype,
+                                             device=self.b.device)
+        self.words[stage2].copy_(words)
+
+    def _capture(self, stage2: bool):
+        """Warm the body up once on a side stream (it builds the kernels,
+        fills the cached constants and sets up cuBLAS, none of which a
+        capture may do), put the carried state back, then capture the body
+        on that stream into a graph.  The warm-up's launches are not
+        counted; the capture's are kept and counted at each replay.  A
+        capture that fails raises."""
+        dev = self.b.device
+        carried = [self.in_race, *self.prev, self.ok]
+        saved = [t.clone() for t in carried]
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.perf_counter()
+        with cuda_ec.recorded(), torch.cuda.stream(stream):
+            self.run(stage2)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        for t, v in zip(carried, saved):
+            t.copy_(v)
+        torch.cuda.synchronize(dev)
+        warm = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        if self.pool is None:
+            # the stages share one pool: Stage1 never replays once Stage2
+            # is captured (the junction does not reset)
+            self.pool = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
+        with cuda_ec.recorded() as launches, torch.cuda.graph(
+                graph, pool=self.pool, stream=stream,
+                capture_error_mode="thread_local"):
+            self.run(stage2)
+        captured = time.perf_counter() - t0
+        kernels, instantiate = cuda_ec.instantiate(graph)
+        torch.cuda.empty_cache()
+        last_graphs["stage2" if stage2 else "stage1"] = {
+            "warmup_s": warm, "capture_s": captured,
+            "instantiate_s": instantiate, "kernels": kernels,
+            "memory_bytes": torch.cuda.memory_reserved(dev) - held,
+            "replays": 0, "replay_s": 0.0, "launches": launches}
+        return graph, launches
+
+    def __call__(self, generator):
+        """The c steps from `generator`'s nonces, most significant bit
+        first; one host read a step (the deciding flag, which picks the
+        next step's stage).  Returns the deciding bits as a list of bool."""
+        n, c = self.bits.shape
+        fn = self.curve.fn
+        if self.graphs is not None:
+            last_graphs.clear()
+        stage2, deciding = False, []
+        for s in range(c):
+            self._inputs(stage2, F.draw_words(fn, generator,
+                                              (_proof_nonces(stage2), n)))
+            self.step.fill_(s)
+            if self.graphs is not None and stage2 not in self.graphs:
+                with record_function("seal.capture"):
+                    self.graphs[stage2] = self._capture(stage2)
+            # the step's device work ends before its flag is read
+            with record_function("seal.step"):
+                t0 = time.perf_counter()
+                if self.graphs is None:
+                    self.run(stage2)
+                else:
+                    graph, launches = self.graphs[stage2]
+                    graph.replay()
+                    cuda_ec.add_launches(launches)
+                deciding.append(bool(self.deciding[s]))
+                if self.graphs is not None:
+                    stats = last_graphs["stage2" if stage2 else "stage1"]
+                    stats["replays"] += 1
+                    stats["replay_s"] += time.perf_counter() - t0
+            stage2 = stage2 or deciding[-1]
+        return deciding
+
+    def round2(self, deciding) -> tuple:
+        """The board's round two: one RoundTwoPub a step, views of the
+        buffers."""
+        out, stage2 = [], False
+        for s, bit in enumerate(deciding):
+            proof = _at(self.proofs[stage2], s)
+            out.append(RoundTwoPub(b=self.b[s],
+                                   proof1=None if stage2 else proof,
+                                   proof2=proof if stage2 else None))
+            stage2 = stage2 or bit
+        return tuple(out)
+
+
 def run_steps(curve: Curve, generator, pre: Precomputed, bits, ids,
               commit_pub: CommitmentPub, commit_sec: CommitmentSec,
               verify: bool, mesh=None):
     """The fused driver's c auction steps, most significant bit first, on
-    this rank's rows.  Returns (deciding (c,) list of bool, ok () bool
-    tensor of this rank's checks, the steps' RoundTwoPub)."""
-    n, c = bits.shape
-    in_race = torch.ones((n,), dtype=F.DTYPE, device=bits.device)
-    junction = False
-    prev = None
-    ok = torch.ones((), dtype=torch.bool, device=bits.device)
-    deciding, round2 = [], []
-    for s in range(c):
-        d = bits[:, s] & in_race
-        b = ec.select(d == 0, pre.b0[s], pre.b1[s])
-        pub1, sec1, Y = _at(pre.pub1, s), _at(pre.sec1, s), pre.Y[s]
-        if not junction:
-            pub2, info = round_two_stage1(curve, generator, sec1, pub1, Y,
-                                          commit_pub, commit_sec, d, ids, s, b)
-            if verify:
-                ok = ok & verify_round_two_stage1(curve, pub2, pub1, Y,
-                                                  commit_pub, ids, s).all()
-        else:
-            pub2, info = round_two_stage2(curve, generator, sec1, pub1, Y,
-                                          commit_pub, commit_sec, d, prev,
-                                          ids, s, b)
-            if verify:
-                ok = ok & verify_round_two_stage2(curve, pub2, pub1, Y,
-                                                  commit_pub, prev, ids,
-                                                  s).all()
-        round2.append(pub2)
-        step_deciding = bool(round_three(curve, b, mesh).item())
-        deciding.append(step_deciding)
-        if step_deciding:
-            prev = info
-            in_race = in_race & d
-            junction = True
-    return deciding, ok, tuple(round2)
+    this rank's rows: `step_body` a step, replayed from one CUDA graph a
+    stage on a CUDA device without a mesh, run uncaptured otherwise.
+    Returns (deciding (c,) list of bool, ok () bool tensor of this rank's
+    checks, the steps' RoundTwoPub)."""
+    steps = _Steps(curve, pre, bits, ids, commit_pub, commit_sec, verify, mesh,
+                   graphs=bits.device.type == "cuda" and mesh is None)
+    deciding = steps(generator)
+    return deciding, steps.ok, steps.round2(deciding)
 
 
 def _run_metered(curve: Curve, generator, bits, ids, verify: bool, phase,
@@ -518,7 +774,8 @@ def run_auction(curve: Curve, bids, c: int, verify: bool = True,
     verified=False and max_bid=-1, as in the JAX package.
 
     The fused driver (the default) runs commit, its check, the hoisted
-    passes of all c steps, then the steps.  With `times` or `tamper` the
+    passes of all c steps, then the steps (`run_steps`: on a card without
+    a mesh, replays of one CUDA graph a stage).  With `times` or `tamper` the
     host loop of one call a round runs instead (`_run_metered`); from the
     same generator both publish the same board and draw the same nonces.
 
@@ -589,3 +846,126 @@ def run_auction(curve: Curve, bids, c: int, verify: bool = True,
     return AuctionResult(max_bid=bits_to_int(deciding), verified=True,
                          deciding_bits=np.asarray(deciding, np.uint8),
                          board=_gather_board(mesh, commit_pub, pub1, round2))
+
+
+# --------------------------------------------------------------------------
+# whole-step compositions (the JAX package's `full_step`, `step_stage1`,
+# `step_stage2`): one step from round one to the veto sum, each phase
+# function the drivers call
+# --------------------------------------------------------------------------
+
+class StepDraws(NamedTuple):
+    """One step's nonces, each (k, n, L)."""
+
+    xr: torch.Tensor   # k = 2: the round-one keys x, r
+    v: torch.Tensor    # k = 2: their PoKDLogs' nonces
+    r: torch.Tensor    # k = STAGE1_NONCES or STAGE2_NONCES: the stage proof's
+
+
+def draw_step(curve: Curve, generator, n: int, device,
+              stage2: bool) -> StepDraws:
+    return StepDraws(*(F.random(curve.fn, generator, (k, n), device)
+                       for k in (2, 2, _proof_nonces(stage2))))
+
+
+def full_step_from(curve: Curve, draws: StepDraws, step, bits_step, in_race,
+                   junction, prev: StepInfo, commit_pub: CommitmentPub,
+                   commit_sec: CommitmentSec, ids, verify: bool = True):
+    """One complete auction step: round one (and its check), the AV-net
+    keys, round two's Stage1 or Stage2 proof (and its check) and the veto
+    sum, with the junction and race bookkeeping.  The stage follows the
+    public junction flag (a bool or a () bool tensor, read on the host);
+    prev is the last deciding step (`dummy_step_info` before one).  step:
+    an int or a one-element device tensor.  Returns (new_race,
+    new_junction, new_prev, deciding, ok), ok True without `verify`."""
+    dev = bits_step.device
+    pub1, sec1 = round_one_from(curve, draws.xr, draws.v, ids, step)
+    d = bits_step & in_race
+    Y = avnet_keys(curve, pub1.X)
+    if bool(junction):
+        pub2, info = round_two_stage2_from(curve, draws.r, sec1, pub1, Y,
+                                           commit_pub, commit_sec, d, prev,
+                                           ids, step)
+    else:
+        pub2, info = round_two_stage1_from(curve, draws.r, sec1, pub1, Y,
+                                           commit_pub, commit_sec, d, ids,
+                                           step)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    if verify:
+        ok2 = (verify_round_two_stage2(curve, pub2, pub1, Y, commit_pub, prev,
+                                       ids, step) if bool(junction) else
+               verify_round_two_stage1(curve, pub2, pub1, Y, commit_pub, ids,
+                                       step))
+        ok = verify_round_one(curve, pub1, ids, step).all() & ok2.all()
+    deciding = round_three(curve, pub2.b)
+    return (torch.where(deciding, in_race & d, in_race), deciding | junction,
+            _where(deciding, info, prev), deciding, ok)
+
+
+def full_step(curve: Curve, generator, step, bits_step, in_race, junction,
+              prev: StepInfo, commit_pub: CommitmentPub,
+              commit_sec: CommitmentSec, ids, verify: bool = True):
+    """`full_step_from` with the step's nonces drawn from `generator`."""
+    draws = draw_step(curve, generator, bits_step.shape[0], bits_step.device,
+                      bool(junction))
+    return full_step_from(curve, draws, step, bits_step, in_race, junction,
+                          prev, commit_pub, commit_sec, ids, verify)
+
+
+def step_stage1_from(curve: Curve, commit_draws: CommitDraws,
+                     draws: StepDraws, bits_step, in_race, ids):
+    """One full pre-junction step of a one-bit auction: the commitment
+    (c = 1) and its check, round one, round two's Stage1 and both checks,
+    the veto sum.  Returns (deciding, all_ok, new_race, StepInfo,
+    CommitmentPub, CommitmentSec)."""
+    commit_pub, commit_sec = commit_from(curve, commit_draws,
+                                         bits_step[:, None], ids)
+    ok_c = verify_commit(curve, commit_pub, ids)
+    pub1, sec1 = round_one_from(curve, draws.xr, draws.v, ids, 0)
+    ok_1 = verify_round_one(curve, pub1, ids, 0)
+    d = bits_step & in_race
+    Y = avnet_keys(curve, pub1.X)
+    pub2, info = round_two_stage1_from(curve, draws.r, sec1, pub1, Y,
+                                       commit_pub, commit_sec, d, ids, 0)
+    ok_2 = verify_round_two_stage1(curve, pub2, pub1, Y, commit_pub, ids, 0)
+    deciding = round_three(curve, pub2.b)
+    return (deciding, ok_c.all() & ok_1.all() & ok_2.all(),
+            torch.where(deciding, in_race & d, in_race), info, commit_pub,
+            commit_sec)
+
+
+def step_stage1(curve: Curve, generator, bits_step, in_race, ids):
+    """`step_stage1_from` with the commitment's and the step's nonces drawn
+    from `generator`, in that order."""
+    n, dev = bits_step.shape[0], bits_step.device
+    commit_draws = draw_commit(curve, generator, n, 1, dev)
+    return step_stage1_from(curve, commit_draws,
+                            draw_step(curve, generator, n, dev, False),
+                            bits_step, in_race, ids)
+
+
+def step_stage2_from(curve: Curve, draws: StepDraws, bits_step, in_race, ids,
+                     prev: StepInfo, commit_pub: CommitmentPub,
+                     commit_sec: CommitmentSec):
+    """One full post-junction step against prev and a one-bit commitment:
+    round one, round two's Stage2, both checks, the veto sum.  Returns
+    (deciding, ok)."""
+    pub1, sec1 = round_one_from(curve, draws.xr, draws.v, ids, 0)
+    ok_1 = verify_round_one(curve, pub1, ids, 0)
+    d = bits_step & in_race
+    Y = avnet_keys(curve, pub1.X)
+    pub2, _ = round_two_stage2_from(curve, draws.r, sec1, pub1, Y, commit_pub,
+                                    commit_sec, d, prev, ids, 0)
+    ok_2 = verify_round_two_stage2(curve, pub2, pub1, Y, commit_pub, prev,
+                                   ids, 0)
+    return round_three(curve, pub2.b), ok_1.all() & ok_2.all()
+
+
+def step_stage2(curve: Curve, generator, bits_step, in_race, ids,
+                prev: StepInfo, commit_pub: CommitmentPub,
+                commit_sec: CommitmentSec):
+    """`step_stage2_from` with the step's nonces drawn from `generator`."""
+    draws = draw_step(curve, generator, bits_step.shape[0], bits_step.device,
+                      True)
+    return step_stage2_from(curve, draws, bits_step, in_race, ids, prev,
+                            commit_pub, commit_sec)

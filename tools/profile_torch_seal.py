@@ -9,10 +9,16 @@ and fills counted apart), the summed GPU kernel time and its share of the
 wall time (the device's busy share; one stream, so kernels do not overlap).
 A phase's GPU work is what starts inside its `seal.<phase>` profiler range;
 `run_auction` synchronizes the device at the end of each phase when it
-times them, so no phase's work spills into the next.  The steps phase is
-also given per step.  Last, the ten kernels with the most GPU time.  Needs a
-CUDA device; prints "not measured" for device numbers when the profiler
-records no device activity.
+times them, so no phase's work spills into the next.  The steps run as
+CUDA graph replays, one graph a stage (`seal._Steps`); the profiler
+records each replayed kernel.  Each step is given on its own from its
+`seal.step` range (the replay and the host read of its deciding flag, so
+its GPU work ends inside), with the stage's graph (kernel nodes, capture,
+instantiate and warm-up seconds, memory held) and each stage's
+`seal.capture` range (the warm-up step and the capture) apart.  Last, the
+ten kernels with the most GPU time.  Needs a CUDA device; prints "not
+measured" for device numbers when the profiler records no device
+activity.
 """
 
 from __future__ import annotations
@@ -87,16 +93,38 @@ def main():
               f"copies/fills {n_copies:6d}  kernel time {busy:7.3f} s  "
               f"busy {100 * busy / seconds:5.1f}%")
 
-    print("phase breakdown (GPU work that starts inside the phase's range):")
-    for name, seconds in times.items():
-        tr = spans[name]
+    def within(tr):
         inside = [e for e in gpu if tr.start <= e.time_range.start < tr.end]
         ks = [e for e in inside if is_kernel(e)]
-        line(name, ks, len(inside) - len(ks), seconds)
-        if name == "steps":
-            print(f"  {'':18s} per step: {len(ks) / args.c:.0f} kernels, "
-                  f"{seconds / args.c:.3f} s wall")
+        return ks, len(inside) - len(ks), (tr.end - tr.start) / 1e6
+
+    print("phase breakdown (GPU work that starts inside the phase's range):")
+    for name, seconds in times.items():
+        ks, copies, _ = within(spans[name])
+        line(name, ks, copies, seconds)
     line("whole auction", kernels, len(gpu) - len(kernels), wall)
+    ranges = sorted(((e.time_range, e.name) for e in events
+                     if e.device_type == torch.autograd.DeviceType.CPU
+                     and e.name in ("seal.step", "seal.capture")),
+                    key=lambda r: r[0].start)
+    print("steps (each replay with its flag read; a stage's warm-up step "
+          "and capture before its first replay):")
+    step, stage2 = 0, False
+    for tr, name in ranges:
+        stage = "Stage2" if stage2 else "Stage1"
+        if name == "seal.step":
+            label = f"step {step} ({stage})"
+            stage2 = stage2 or bool(res.deciding_bits[step])
+            step += 1
+        else:
+            label = f"capture ({stage})"
+        line(label, *within(tr))
+    for stage, g in seal.last_graphs.items():
+        print(f"  graph {stage}: {g['kernels']} kernel nodes, capture "
+              f"{g['capture_s']:.3f} s, instantiate {g['instantiate_s']:.3f} s, "
+              f"warm-up step {g['warmup_s']:.3f} s, "
+              f"{g['memory_bytes'] / 2**20:.1f} MiB held, {g['replays']} "
+              "replays")
     by_name = {}
     for e in kernels:
         cnt, tot = by_name.get(e.name, (0, 0.0))

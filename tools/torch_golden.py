@@ -1,10 +1,11 @@
 """Write the golden vectors that hold the PyTorch port to the JAX package.
 
     JAX_PLATFORMS=cpu python tools/torch_golden.py \
-        [--only seal ccs22 ladders64 seal_metered ccs22_metered wire p256]
+        [--only seal ccs22 ladders64 seal_metered ccs22_metered wire p256
+                seal_step]
 
 Runs the JAX package (`privacy_auction_tpu`) on the CPU from seeded inputs
-and writes `tests/data/torch_golden_<name>.npz` for each name (all five by
+and writes `tests/data/torch_golden_<name>.npz` for each name (all of them by
 default); `seal_metered` and `ccs22_metered` share
 `torch_golden_metered.npz`, and running one of them keeps the other's
 arrays there.
@@ -52,6 +53,23 @@ the two-bidder commitment, bidder 0's round-one keys at step 1, the
 Stage1 round two of both bidders and bidder 1's Stage2 round two.  It
 reads `torch_golden_seal.npz`, so it runs after `seal`.
 `tests/test_torch_wire.py` holds the port's wire module to them.
+
+`seal_step` records SEAL's fused step at bids [5, 3, 6], c = 3 (Stage1 at
+step 0, the junction there, Stage2 at steps 1 and 2): the commitments,
+the precomputed streams `_precompute` gives the scan, and for each step
+what the JAX package's scan body (`_scan_steps`) took and gave -- the
+carried race, junction and previous deciding step, its per-step key's
+stage nonces, the new carry, the deciding bit and the proof check --
+with the proof the body generated; the scan's deciding bits and checks;
+then `full_step` at step 0 (Stage1) and step 1 (Stage2, against step 0
+of the scan), `step_stage1`, and `step_stage2` against `step_stage1`'s
+outputs, each with the nonces its key gave and all it returned; and
+`ec.serialize_affine` of seeded affine points with infinity.  The scan
+body is recorded through a stand-in for `jax.lax.scan` that runs the
+body, jitted, one step at a time (this process only).
+`tests/test_torch_seal_step_body.py` and `test_torch_seal_full_step.py`
+hold the port's `step_body`, `full_step`, `step_stage1`, `step_stage2` and
+`serialize_affine` to them.
 
 `p256` records NIST P-256 on the JAX package's generic path (Barrett
 fields, RCB16 Alg 1/3, 64-window ladders, no Pallas): for both fields
@@ -500,6 +518,169 @@ def wire_arrays():
     return out
 
 
+STEP_BIDS = (5, 3, 6)        # bits 101, 011, 110: Stage1, then Stage2 twice
+STEP_C = 3
+
+
+def _stage_r(key, stage2, n):
+    """The nonces gen_powfstage1 / gen_powfstage2 draw from `key`."""
+    return F.random(CURVE.fn, key, ((14 if stage2 else 5), n))
+
+
+def _step_draws(key, stage2, n):
+    """The nonces `full_step` draws from `key`: round one's keys and
+    PoKDLog nonces, then the stage proof's."""
+    k1, k2 = jax.random.split(key)
+    k_xr, k_v = jax.random.split(k1)
+    return (F.random(CURVE.fn, k_xr, (2, n)), F.random(CURVE.fn, k_v, (2, n)),
+            _stage_r(k2, stage2, n))
+
+
+def seal_step_arrays():
+    fn = CURVE.fn
+    out = {}
+
+    def put(prefix, tup):
+        for k, v in tup._asdict().items():
+            if hasattr(v, "_asdict"):
+                put(f"{prefix}.{k}", v)
+            else:
+                out[f"{prefix}.{k}"] = np.asarray(v)
+
+    bids, c = list(STEP_BIDS), STEP_C
+    n = len(bids)
+    bits = jnp.asarray(seal.bids_to_bits(bids, c))
+    ids = jnp.arange(n, dtype=jnp.uint32)
+    out["bids"], out["c"] = np.asarray(bids), np.asarray(c)
+    commit_pub, commit_sec = seal._jit_commit(CURVE, jax.random.key(SEED + 50),
+                                              bits, ids)
+    put("commit_pub", commit_pub)
+    put("commit_sec", commit_sec)
+    pre = seal._precompute(CURVE, jax.random.key(SEED + 51), (n, c), ids,
+                           True)
+    step_keys, X_all, R_all, x_all, Y_all, b0, b1, _ = pre
+    for name, v in zip(("X", "R", "x", "Y", "b0", "b1"),
+                       (X_all, R_all, x_all, Y_all, b0, b1)):
+        out[f"pre.{name}"] = np.asarray(v)
+
+    # ---- the scan body, one step at a time ----------------------------------
+    steps = []
+
+    def recording_scan(body, init, xs=None, **kw):
+        if getattr(body, "__qualname__", "") != "_scan_steps.<locals>.body":
+            return real_scan(body, init, xs, **kw)     # the ladders' scans
+        run = jax.jit(body)
+        carry, ys = init, []
+        for i in range(len(xs[0])):
+            x = jax.tree.map(lambda a: a[i], xs)
+            new, y = run(carry, x)
+            steps.append((carry, x, new, y))
+            carry, ys = new, ys + [y]
+        return carry, jax.tree.map(lambda *a: jnp.stack(a), *ys)
+
+    real_scan = jax.lax.scan
+    jax.lax.scan = recording_scan
+    try:
+        deciding, oks = seal._scan_steps(CURVE, pre, bits, ids, commit_pub,
+                                         commit_sec, True)
+    finally:
+        jax.lax.scan = real_scan
+    out["scan.deciding"], out["scan.oks"] = np.asarray(deciding), np.asarray(oks)
+    gen1 = jax.jit(lambda k, *a: nizk.gen_powfstage1(CURVE, k, *a[:10], a[10],
+                                                     b=a[11]))
+    gen2 = jax.jit(lambda k, p, *a: nizk.gen_powfstage2(CURVE, k, p, *a[:5],
+                                                        a[5], a[6], b=a[7]))
+    for s_, ((race, junction, prev), x, (new_race, new_junction, new_prev),
+             (dec, ok2)) in enumerate(steps):
+        (k2, step, bits_step, X_s, R_s, x_s, Y_s, b0_s, b1_s, phi_s, A_s, B_s,
+         alpha_s) = x
+        stage2 = bool(junction)
+        d = bits_step & race
+        b = ec.select(d == 0, b0_s, b1_s)
+        out[f"step{s_}.in_race"] = np.asarray(race)
+        out[f"step{s_}.junction"] = np.asarray(junction)
+        put(f"step{s_}.prev", prev)
+        out[f"step{s_}.r"] = np.asarray(_stage_r(k2, stage2, n))
+        out[f"step{s_}.new_race"] = np.asarray(new_race)
+        out[f"step{s_}.new_junction"] = np.asarray(new_junction)
+        put(f"step{s_}.new_prev", new_prev)
+        out[f"step{s_}.deciding"] = np.asarray(dec)
+        out[f"step{s_}.ok"] = np.asarray(ok2)
+        if stage2:
+            pts = dict(Xi=X_s, Ri=R_s, Yi=Y_s, Bj=prev.b, Xj=prev.X,
+                       Rj=prev.R, Yj=prev.Y, Ci=phi_s, A=A_s, B=B_s)
+            proof, _ = gen2(k2, pts, x_s, prev.x, alpha_s, d, prev.d, ids,
+                            step, b)
+        else:
+            proof, _ = gen1(k2, X_s, Y_s, R_s, phi_s, A_s, B_s, x_s, alpha_s,
+                            d, ids, step, b)
+        put(f"step{s_}.proof", proof)
+        out[f"step{s_}.b"] = np.asarray(b)
+
+    # ---- full_step at step 0 (Stage1) and step 1 (Stage2) -------------------
+    run_full = jax.jit(seal.full_step, static_argnums=(0, 10))
+    for s_ in (0, 1):
+        race, junction, prev = steps[s_][0]
+        key = jax.random.key(SEED + 52 + s_)
+        for name, v in zip(("xr", "v", "r"), _step_draws(key, bool(junction),
+                                                         n)):
+            out[f"full{s_}.draw.{name}"] = np.asarray(v)
+        new_race, new_junction, new_prev, dec, ok = run_full(
+            CURVE, key, jnp.asarray(s_, jnp.uint32), bits[:, s_], race,
+            junction, prev, commit_pub, commit_sec, ids, True)
+        out[f"full{s_}.new_race"] = np.asarray(new_race)
+        out[f"full{s_}.new_junction"] = np.asarray(new_junction)
+        put(f"full{s_}.new_prev", new_prev)
+        out[f"full{s_}.deciding"] = np.asarray(dec)
+        out[f"full{s_}.ok"] = np.asarray(ok)
+
+    # ---- step_stage1, then step_stage2 against its outputs ------------------
+    key = jax.random.key(SEED + 54)
+    kc, k1, k2 = jax.random.split(key, 3)
+    k_ab, k_v, k_wf = jax.random.split(kc, 3)
+    bits1 = bits[:, 0]
+    for name, v in (("ab", F.random(fn, k_ab, (2, n, 1))),
+                    ("v", F.random(fn, k_v, (2, n, 1))),
+                    ("r", F.random(fn, k_wf, (3, n, 1)))):
+        out[f"stage1.commit_draw.{name}"] = np.asarray(v)
+    k_xr, k_v1 = jax.random.split(k1)
+    for name, v in (("xr", F.random(fn, k_xr, (2, n))),
+                    ("v", F.random(fn, k_v1, (2, n))),
+                    ("r", _stage_r(k2, False, n))):
+        out[f"stage1.draw.{name}"] = np.asarray(v)
+    race1 = jnp.ones((n,), jnp.uint32)
+    dec1, ok1, new_race1, info1, cpub1, csec1 = jax.jit(
+        seal.step_stage1, static_argnums=0)(CURVE, key, bits1, race1, ids)
+    out["stage1.bits"] = np.asarray(bits1)
+    out["stage1.deciding"], out["stage1.ok"] = np.asarray(dec1), np.asarray(ok1)
+    out["stage1.new_race"] = np.asarray(new_race1)
+    put("stage1.info", info1)
+    put("stage1.commit_pub", cpub1)
+    put("stage1.commit_sec", csec1)
+    key = jax.random.key(SEED + 55)
+    for name, v in zip(("xr", "v", "r"), _step_draws(key, True, n)):
+        out[f"stage2.draw.{name}"] = np.asarray(v)
+    bits2 = bits1         # the bit step_stage1's one-bit commitment holds
+    dec2, ok2 = jax.jit(seal.step_stage2, static_argnums=0)(
+        CURVE, key, bits2, new_race1, ids, info1, cpub1, csec1)
+    out["stage2.bits"] = np.asarray(bits2)
+    out["stage2.deciding"], out["stage2.ok"] = np.asarray(dec2), np.asarray(ok2)
+
+    # ---- serialize_affine ---------------------------------------------------
+    host = CURVE.host
+    rng = random.Random(SEED + 56)
+    pts = [host.mul(rng.randrange(1, host.n), host.g) for _ in range(3)] + [None]
+    xs = [0 if q is None else q[0] for q in pts]
+    ys = [0 if q is None else q[1] for q in pts]
+    ax, ay = jnp.asarray(F.ints_to_limbs(xs)), jnp.asarray(F.ints_to_limbs(ys))
+    inf = jnp.asarray([False, True, False, False])
+    out["affine.x"], out["affine.y"] = np.asarray(ax), np.asarray(ay)
+    out["affine.inf"] = np.asarray(inf)
+    out["affine.bytes"] = np.asarray(ec.serialize_affine(ax, ay))
+    out["affine.bytes_inf"] = np.asarray(ec.serialize_affine(ax, ay, inf))
+    return out
+
+
 P256_SEED = 0x9256
 
 
@@ -564,7 +745,8 @@ BUILDERS = {"seal": seal_arrays, "ccs22": ccs22_arrays,
             "ladders64": ladders64_arrays,
             "seal_metered": seal_metered_arrays,
             "ccs22_metered": ccs22_metered_arrays,
-            "wire": wire_arrays, "p256": p256_arrays}
+            "wire": wire_arrays, "p256": p256_arrays,
+            "seal_step": seal_step_arrays}
 # builders that share a file; the others write torch_golden_<name>.npz
 SHARED_FILES = {"seal_metered": "metered", "ccs22_metered": "metered"}
 
