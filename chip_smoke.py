@@ -7,8 +7,9 @@ Drives the port (`privacy_auction_tpu_torch`) and nothing of the JAX
 package, in these phases; any failure raises and the exit code is non-zero:
 
 1. the card's name and power limit (nvidia-smi);
-2. builds the seven EC kernels from `privacy_auction_tpu_torch/csrc/` with
-   nvcc (sm_90a) into `build/cuda_ec/`, with ptxas' register and spill
+2. builds the seven EC kernels and the SHA-256 kernel from
+   `privacy_auction_tpu_torch/csrc/` with nvcc (sm_90a, one nvcc a source,
+   started together) into `build/cuda_ec/`, with ptxas' register and spill
    report; then reads every table select of every kernel variant in the
    SASS (cuobjdump, next to nvcc): it fails unless each of the 12 variants
    that look up tables (the six table-lookup kernels at both of their
@@ -22,8 +23,8 @@ package, in these phases; any failure raises and the exit code is non-zero:
    other 30 steps repeat the same shapes.  Every party must return (the
    plaintext maximum, True), the hub's meters must equal the formula of
    tests/test_native_auction.py exactly, every party must report `cuda`,
-   and in every party `mul_comb`, `dual_mul`, `quad_mul` and
-   `base_mul_add_glv` must rise and no other kernel run (counts and
+   and in every party `mul_comb`, `dual_mul`, `quad_mul`,
+   `base_mul_add_glv` and `sha256` must rise and no other kernel run (counts and
    devices come back in files beside the hub's socket, not through the
    hub); it prints the wall time, the slowest party's time, the meters
    and the parties' launches by kernel and lane count, and every lane
@@ -36,13 +37,14 @@ package, in these phases; any failure raises and the exit code is non-zero:
    start after this process built the kernels).  Every rank's outcome and
    whole board must equal the unsharded run's bit for bit, and each
    rank's kernels must launch at the unsharded lane counts divided by the
-   mesh size, as often; it prints each rank's wall, backend and launches
+   mesh size, as often (CCS22's evaluator hash at one lane on every rank); it prints each rank's wall, backend and launches
    by kernel and lane count, and the ranks' lane counts join phase 3's
    parity list;
 3. the full kernel validator (the 64-window ladders, `mul_base`, the GLV
    dispatch and `pt_add`, edge lanes against the host oracle) with the
-   launch counts set to 0 before it and read after it: every kernel must
-   have run; then each kernel row against its plain PyTorch version on the
+   launch counts set to 0 before it and read after it: every EC kernel
+   must have run, and SHA-256 not (the validator hashes nothing); then each
+   kernel row against its plain PyTorch version on the
    card (exactly: integer limbs, tolerance 0) and sampled lanes against the
    host oracle: the eight rows of the seven group kernels (`dual_mul` at
    33 and at 64 windows) at 1, 15, 17, 300 and 2053 lanes and at the lane
@@ -51,16 +53,25 @@ package, in these phases; any failure raises and the exit code is non-zero:
    at (`pt_add` at 8, 2048 and 20480, with the validator's special lanes
    P + P, P + (-P), P + infinity and infinity + Q), each lane count once,
    each at both of its threads a lane (8 and 4; `mul_comb` 8 and 2);
+3b. the SHA-256 kernel against its plain version on the card and against
+   hashlib, exactly: messages of 0, 55, 56, 63, 64 and 119 bytes (block
+   boundaries), 218, 543, 1066 and 1846 (the PoKDLog, PoWFCom, Stage1 and
+   Stage2 transcripts) and 4096 (a CCS22 bidder's message at c = 32), each
+   at 1, 20, 64 and 2053 lanes, and the one-lane evaluator messages of
+   CCS22 20x32, 64x32 and 1024x64 (385, 1,089 and 32,897 blocks; the plain
+   version is not run on the last, one eager chain of some 100M ops); each
+   case timed; then the clocks of a round's critical chain on one thread;
 4. verified SEAL auctions at 20x32 and 128x8 bidders x bits from a seed
    (the fused driver; the second cut from 128x32 to 128x8 to leave time
    for phases 2c and 6b), whose steps replay one CUDA graph a stage: each
    must verify and find the plaintext maximum, capture a graph for each
    stage it reaches (Stage2 after a deciding step that is not the last)
-   and replay it for every step of the stage, and launch its four kernels
-   at exactly the lane counts the fused driver's phases give them
-   (`seal_lanes`: `quad_mul` twice a step, for the proof and its check,
-   besides the commitment's two), a graph's launches counted at each
-   replay; it prints the launches by kernel and lane count and, for each
+   and replay it for every step of the stage, and launch its four EC
+   kernels and SHA-256 at exactly the lane counts the fused driver's phases
+   give them (`seal_lanes`: `quad_mul` and `sha256` twice a step, for the
+   proof and its check, besides the commitment's and round one's), a
+   graph's launches counted at each replay; the 20x32 Stage1 graph must
+   hold fewer than 70,000 kernel nodes (its hashes single launches); it prints the launches by kernel and lane count and, for each
    graph, its GPU kernels a step (kernel nodes), the seconds of its
    warm-up step, capture, instantiation and replays, and the device
    memory its pool took;
@@ -71,14 +82,18 @@ package, in these phases; any failure raises and the exit code is non-zero:
 4b. the role-metered SEAL auction at 20x8 (cut from 20x32 for the same
    reason; a step's shapes do not depend on c) through the CLI's run function
    (`cli.run_seal`, no warm-up: the build is loaded): it must verify and
-   find the plaintext maximum, and the four kernels must rise; it prints
+   find the plaintext maximum, and the four kernels and SHA-256 must rise;
+   it prints
    the CLI's per-role report and the launches by kernel and lane count;
 5. CCS22 auctions at 20x32 and 64x32 from a seed with a random evaluator
    (the fused driver): each must find the plaintext maximum, `mul_comb`,
-   `dual_mul` and `quad_mul` must rise and no other kernel may run (the
-   protocol has no verification phase); the 20x32 auction's steps run once
-   more with every host synchronization an error; then the setup's SHA-256
-   alone at 20x32 (cut from 64x32 for the time limit);
+   `dual_mul`, `quad_mul` and `sha256` must rise and no other kernel may
+   run (the protocol has no verification phase), and its c steps must be
+   c replays of one CUDA graph (it prints the graph's kernel nodes, its
+   warm-up, capture, instantiation and replay seconds and its memory);
+   the 20x32 auction's steps run once more uncaptured from the same draws,
+   with every host synchronization an error, and must give the graph's
+   board limb for limb;
 5b. the role-metered CCS22 auction at 20x32 from the fused 20x32 run's
    draws: it must find the plaintext maximum and publish the fused run's
    board (the OT messages G, H, C0, C1 as SEC1 bytes, the rest limb for
@@ -93,9 +108,9 @@ package, in these phases; any failure raises and the exit code is non-zero:
    max_bid=-1 at the check where the JAX loop stopped;
 6b. NIST P-256 on the card: a fused verified SEAL auction and a fused
    CCS22 auction at 20x2 (c cut from 32 to 2 for the time limit) from the
-   seed; each must find the plaintext maximum (SEAL verified), and no CUDA
-   kernel may launch (P-256 runs the generic plain path); it prints the
-   phase times;
+   seed; each must find the plaintext maximum (SEAL verified), no EC
+   kernel may launch (P-256 runs the generic plain path) and SHA-256 must
+   (the hash does not depend on the curve); it prints the phase times;
 7. tools/bench_ladder_torch.py at 8192 lanes (64-window ladders beside
    their GLV forms); then the port's tools: tools/run_sweep_torch.py over
    the first 4 pairs of params.txt, in a process of its own that runs
@@ -118,7 +133,12 @@ package, in these phases; any failure raises and the exit code is non-zero:
    0), all taken in phase 3 on its inputs; the
    bound from the 32-bit integer multiplies or the bytes it needs, and
    ptxas' registers, stack and spills with the threads a lane, threads a
-   block and shared memory a block of the launch.
+   block and shared memory a block of the launch; then the SHA-256 rows,
+   phase 3b's cases (the row named `sha256`: 20 lanes of a Stage1
+   transcript, a SEAL 20x32 step's), each with its launches by lane count
+   on every path, its bound (the larger of its 32-bit integer operations
+   over the card's rate, its bytes over the memory rate, and one lane's
+   chain of rounds at the clocks measured in 3b) and ptxas' registers.
 
 Each log line starts with the seconds since the start.  Prints its total
 time, a `kernels` JSON line, the nvidia-smi line, and last the line
@@ -140,7 +160,8 @@ DEVICE = "cuda"
 SEED = 20261016
 AUCTIONS = ((20, 32), (128, 8))
 HUB = (20, 2)            # party processes x bits; c cut from 32 for time
-HUB_KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv")
+HUB_KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv",
+               "sha256")
 P256_AUCTION = (20, 2)   # bidders x bits; c cut from 32 for time
 CCS22_AUCTIONS = ((20, 32), (64, 32))
 MESH = (20, 8)           # bidders x bits of the mesh phase's auctions
@@ -155,10 +176,29 @@ SAMPLED = 8
 # SM for 32-bit integer multiply(-add) at compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput table) x 132 SMs x
 # 1.98 GHz (the boost clock behind the published 67 TFLOP/s fp32 peak).
-INT_MUL_RATE = 64 * 132 * 1.98e9
+BOOST_CLOCK = 1.98e9
+INT_MUL_RATE = 64 * 132 * BOOST_CLOCK
+# 32-bit integer add, logic op, shift and funnel shift run at the same 64
+# results per clock per SM at compute capability 9.0 (the same table)
+INT_OP_RATE = 64 * 132 * BOOST_CLOCK
 HBM_RATE = 3.35e12   # bytes/s, NVIDIA H100 SXM data sheet
 SOURCE = "privacy_auction_tpu_torch/csrc/ec_ladders.cu"
 GROUP_SOURCE = "privacy_auction_tpu_torch/csrc/ec_group.cuh"
+SHA_SOURCE = "privacy_auction_tpu_torch/csrc/sha256.cu"
+# the JAX package's SHA-256 loop that the kernel is the counterpart of (not
+# a Pallas kernel)
+SHA_REPLACES = "privacy_auction_tpu/ops/sha256.py:101"
+HASH = "sha256"
+# SHA-256 (phase 3b): the lane counts and message lengths held to the
+# plain version and hashlib: the block boundaries, the PoKDLog, PoWFCom,
+# Stage1 and Stage2 transcripts, a CCS22 bidder's message at c = 32; and
+# the one-lane evaluator messages of CCS22 20x32, 64x32 and 1024x64 (385,
+# 1,089 and 32,897 blocks), the plain version on the first two only (the
+# third would be one eager chain of some 100M ops)
+SHA_LANES = (1, 20, 64, 2053)
+SHA_LENGTHS = (0, 55, 56, 63, 64, 119, 218, 543, 1066, 1846, 4 * 32 * 32)
+SHA_CHAINS = ((20, 32), (64, 32), (1024, 64))
+SHA_PLAIN_CHAINS = ((20, 32), (64, 32))
 REPLACES = {
     "mul_comb": "privacy_auction_tpu/ops/pallas_ec.py:538",
     "dual_mul": "privacy_auction_tpu/ops/pallas_ec.py:366",
@@ -174,7 +214,10 @@ REPLACES = {
 # kernel (several threads a lane on csrc/ec_group.cuh)
 ROWS = tuple(REPLACES)
 SEAL_KERNELS = ROWS[:4]
-CCS22_KERNELS = ("mul_comb", "dual_mul", "quad_mul")
+# the kernels each auction's path must launch, and no other: the EC kernels
+# and SHA-256 (every proof's challenge, CCS22's commitment hash)
+SEAL_PATH = SEAL_KERNELS + ("sha256",)
+CCS22_KERNELS = ("mul_comb", "dual_mul", "quad_mul", "sha256")
 SELECT_VARIANTS = 12    # the six table-lookup kernels, each at both G
 RAGGED_LANES = (1, 15, 17, 300, 2053)   # part of a block, ragged blocks
 # the lane counts the auctions launch each group row at: mul_comb at SEAL
@@ -332,16 +375,21 @@ def seal_lanes(n: int, c: int, deciding) -> dict:
     (quad_mul 4nc), its check (quad_mul 6nc), round one's comb (4nc) and
     its check (base_mul_add_glv 2nc), the ciphertext candidates (dual_mul
     2nc), then a proof and its check a step (quad_mul 8n each before the
-    junction, 16n after it)."""
+    junction, 16n after it).  SHA-256, a launch a challenge: the
+    commitment's PoKDLogs (2nc) and PoWFCom (nc), their check (the same
+    two), round one's PoKDLogs and their check (2nc each), then a proof and
+    its check a step (n each)."""
     want: dict = {}
     for key in (("mul_comb", 5 * n * c), ("mul_comb", 4 * n * c),
                 ("quad_mul", 4 * n * c), ("quad_mul", 6 * n * c),
-                ("base_mul_add_glv", 2 * n * c), ("dual_mul", 2 * n * c)):
+                ("base_mul_add_glv", 2 * n * c), ("dual_mul", 2 * n * c),
+                (HASH, 2 * n * c), (HASH, n * c), (HASH, 2 * n * c),
+                (HASH, n * c), (HASH, 2 * n * c), (HASH, 2 * n * c)):
         want[key] = want.get(key, 0) + 1
     stage2 = False
     for bit in deciding:
-        key = ("quad_mul", 16 * n if stage2 else 8 * n)
-        want[key] = want.get(key, 0) + 2
+        for key in (("quad_mul", 16 * n if stage2 else 8 * n), (HASH, n)):
+            want[key] = want.get(key, 0) + 2
         stage2 = stage2 or bool(bit)
     return want
 
@@ -418,14 +466,18 @@ def mesh_phase(n: int, c: int, device, runs=MESH_RUNS):
                         f"({r['backend']}): max_bid {got['max_bid']}, "
                         f"deciding {got['deciding']}, not the unsharded "
                         "run's outcome and board")
-                lanes = {(k, l // ranks): v
+                # every launch at the unsharded lanes / ranks, but CCS22's
+                # evaluator hash: one lane on every rank (its message gathered)
+                lanes = {(k, l if (k, l) == (HASH, 1) else l // ranks): v
                          for (k, l), v in ref["launch_lanes"].items()}
-                if (any(l % ranks for _, l in ref["launch_lanes"])
+                if (any(l % ranks for k, l in ref["launch_lanes"]
+                        if (k, l) != (HASH, 1))
                         or got["launch_lanes"] != lanes):
                     raise AssertionError(
                         f"mesh {name} {n}x{c}, rank {r['rank']} of {ranks}: "
                         f"launches {sorted(got['launch_lanes'].items())}, "
-                        f"want the unsharded lanes / {ranks}: "
+                        f"want the unsharded lanes / {ranks} (the evaluator's "
+                        f"hash at one lane): "
                         f"{sorted(lanes.items())}")
                 seen |= set(got["launch_lanes"])
                 log(f"[mesh {name} {n}x{c}] rank {r['rank']} of {ranks} "
@@ -520,7 +572,9 @@ def tools_phase(device, auction=TOOLS_AUCTION):
 
 def p256_phase(n: int, c: int, device):
     """Phase 6b: fused SEAL (verified) and CCS22 auctions on P-256 at n x c
-    on `device`; no kernel may launch."""
+    on `device`; no EC kernel may launch (P-256 runs the generic plain
+    path), and SHA-256, which does not depend on the curve, must launch.
+    Returns the SHA-256 launches by lane count."""
     import torch
 
     from privacy_auction_tpu_torch.curves import get_curve
@@ -559,9 +613,108 @@ def p256_phase(n: int, c: int, device):
     log(f"[p256 ccs22 {n}x{c}] evaluator {eval_id}, max_bid={res.max_bid}, wall "
         f"{wall:.3f} s (CRS {crs:.3f} s before it); phases "
         + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()))
-    if any(cuda_ec.launches.values()):
-        raise AssertionError(f"P-256: kernels launched {json.dumps(cuda_ec.launches)}")
-    log("[p256] both auctions ran the generic plain path: no kernel launched")
+    ec_rows = [k for k in cuda_ec.EC_ROWS if cuda_ec.launches[k]]
+    if ec_rows or not cuda_ec.launches[HASH]:
+        raise AssertionError(f"P-256: EC kernels {ec_rows} launched, sha256 "
+                             f"{cuda_ec.launches[HASH]} times")
+    log("[p256] both auctions ran the generic plain path: no EC kernel "
+        f"launched; sha256 {cuda_ec.launches[HASH]} launches, by lanes "
+        + json.dumps({f"{k}@{n}": v for (k, n), v in
+                      sorted(cuda_ec.launch_lanes.items())}))
+    return dict(cuda_ec.launch_lanes)
+
+
+def sha256_phase(device, lanes=SHA_LANES, lengths=SHA_LENGTHS,
+                 chains=SHA_CHAINS, plain_chains=SHA_PLAIN_CHAINS):
+    """Phase 3b: the SHA-256 kernel against its plain version on `device`
+    and against hashlib, exactly, for every message length of `lengths` at
+    each lane count of `lanes` (one input set a length, at the most lanes;
+    the kernel on its first l lanes), and for the one-lane messages of
+    `chains` (CCS22's evaluator message at each (n, c)); the plain version
+    runs on those of `plain_chains` only.  Each case is timed after its
+    checked launch: the kernel with CUDA events around 5 launches (which
+    hold the wrapper's host time), the plain version once.  Returns
+    the kernels line's rows (without the launches, which phase 8 adds) and
+    the clocks of a round's critical chain on this card."""
+    import hashlib
+
+    import torch
+
+    from privacy_auction_tpu_torch.ops import cuda_ec
+    from privacy_auction_tpu_torch.ops.sha256 import sha256_plain
+
+    def words(msg) -> list:
+        return [int.from_bytes(hashlib.sha256(bytes(m)).digest()[4 * i:4 * i + 4],
+                               "big") for m in msg for i in range(8)]
+
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def timed(fn, reps):
+        e0.record()
+        for _ in range(reps):
+            out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1) / reps
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    cases = [(length, lanes) for length in lengths]
+    cases += [(4 * c * 32 + n * c * 32, (1,)) for n, c in chains]
+    rows = []
+    for length, counts in cases:
+        host = torch.randint(0, 256, (max(counts), length), generator=gen,
+                             dtype=torch.uint8)
+        want = torch.tensor(words(host.numpy()), dtype=torch.int64).reshape(-1, 8)
+        msg = host.to(device)
+        one = counts == (1,)
+        run_plain = not one or any(4 * c * 32 + n * c * 32 == length
+                                   for n, c in plain_chains)
+        for n in counts:
+            got = cuda_ec.sha256(msg[:n])
+            if not torch.equal(got.cpu(), want[:n]):
+                raise AssertionError(f"sha256 at {n} lanes of {length} B: the "
+                                     "kernel differs from hashlib")
+            _, ms = timed(lambda: cuda_ec.sha256(msg[:n]), 5)
+            plain_ms = None
+            if run_plain:
+                plain, plain_ms = timed(lambda: sha256_plain(msg[:n]), 1)
+                if not torch.equal(plain, got):
+                    raise AssertionError(f"sha256 at {n} lanes of {length} B: "
+                                         "the kernel differs from the plain "
+                                         "version")
+            blocks = cuda_ec.sha256_blocks(length)
+            rows.append({"lanes": n, "bytes": length, "blocks": blocks,
+                         "ms": ms, "plain_ms": plain_ms})
+            log(f"[sha256] {n} lanes of {length} B ({blocks} blocks): equal to "
+                + ("the plain version and " if run_plain else "")
+                + f"hashlib; kernel {ms:.4f} ms"
+                + (f", plain {plain_ms:.1f} ms" if run_plain else
+                   " (the plain version not run: one eager chain of "
+                   f"{blocks} blocks)"))
+    clocks = cuda_ec.sha256_chain_clocks(device)
+    log(f"[sha256] {len(rows)} cases equal to hashlib, "
+        f"{sum(r['plain_ms'] is not None for r in rows)} to the plain version "
+        f"too; a round's critical chain (Sigma1, then the add that makes the "
+        f"new e) takes {clocks:.2f} clocks on one thread")
+    return rows, clocks
+
+
+def sha256_bound(lanes: int, length: int, chain_clocks: float) -> dict:
+    """The least time of one SHA-256 launch over `lanes` messages of
+    `length` bytes: the larger of its 32-bit integer operations over the
+    card's rate, its bytes (each message read once, each digest written
+    once) over the memory rate, and one lane's chain of rounds (blocks x 64
+    rounds x a round's critical chain) at the boost clock."""
+    from privacy_auction_tpu_torch.ops import cuda_ec
+
+    blocks = cuda_ec.sha256_blocks(length)
+    ops_s = lanes * blocks * cuda_ec.SHA256_OPS_PER_BLOCK / INT_OP_RATE
+    bytes_s = lanes * (length + 64) / HBM_RATE
+    chain_s = blocks * 64 * chain_clocks / BOOST_CLOCK
+    return {"bound_ms": 1e3 * max(ops_s, bytes_s, chain_s),
+            "bound_by": "bytes" if bytes_s > max(ops_s, chain_s) else "operations",
+            "bound_ops_ms": 1e3 * ops_s, "bound_bytes_ms": 1e3 * bytes_s,
+            "bound_chain_ms": 1e3 * chain_s}
 
 
 def main() -> int:
@@ -574,7 +727,6 @@ def main() -> int:
     from privacy_auction_tpu_torch.nizk import PoKDLog
     from privacy_auction_tpu_torch.ops import cuda_ec, ec
     from privacy_auction_tpu_torch.ops import field as F
-    from privacy_auction_tpu_torch.ops.sha256 import sha256
     from privacy_auction_tpu_torch.ops.validate import validate_kernels
     from privacy_auction_tpu_torch import cli
     from privacy_auction_tpu_torch.protocols import ccs22, seal
@@ -633,9 +785,11 @@ def main() -> int:
     torch.cuda.synchronize()
     validator_launches = dict(cuda_ec.launches)
     validator_lanes = dict(cuda_ec.launch_lanes)
-    idle = [k for k, v in validator_launches.items() if v == 0]
-    if idle:
-        raise AssertionError(f"validator: kernels {idle} never launched")
+    # every EC kernel; the validator does not hash
+    idle = [k for k in cuda_ec.EC_ROWS if validator_launches[k] == 0]
+    if idle or validator_launches[HASH]:
+        raise AssertionError(f"validator: kernels {idle} never launched, "
+                             f"sha256 {validator_launches[HASH]} times")
     log("[validate] 64-window ladders, mul_base, GLV dispatch and pt_add: "
         "edge lanes (k = 0, 1, n-1; infinity input) match host_curve; "
         f"launches {json.dumps(validator_launches)}")
@@ -767,7 +921,7 @@ def main() -> int:
     # and the lane counts of the hub's parties and the mesh's ranks
     timed += [(name, lanes, True)
               for name, lanes in sorted(set(hub_lanes) | set(mesh_lanes))
-              if (name, lanes) not in GROUP_TIMED
+              if name in ROWS and (name, lanes) not in GROUP_TIMED
               and (name, lanes) != (name, shapes.get(name))]
     timing = {}
 
@@ -828,6 +982,9 @@ def main() -> int:
                                        int((plain - ref).abs().max()))}
     log(f"[parity] {n_cases} cases, each equal to its plain version")
 
+    # ---- 3b. the SHA-256 kernel against its plain version and hashlib --------
+    sha_rows, chain_clocks = sha256_phase(dev)
+
     def by_lanes(counts):
         return {f"{k}@{n}": v for (k, n), v in sorted(counts.items())}
 
@@ -850,9 +1007,15 @@ def main() -> int:
         if not res.verified or res.max_bid != max(bids):
             raise AssertionError(f"SEAL {n}x{c}: verified={res.verified} "
                                  f"max_bid={res.max_bid} != {max(bids)}")
-        idle = [k for k in SEAL_KERNELS if counts[k] == 0]
+        idle = [k for k in SEAL_PATH if counts[k] == 0]
         if idle:
             raise AssertionError(f"SEAL {n}x{c}: kernels {idle} never launched")
+        # the step's hashes are single launches: with the eager SHA-256
+        # (some 3,000 ops a block) the Stage1 graph held 141,739 kernel
+        # nodes at 20x32
+        if (n, c) == AUCTIONS[0] and graphs["stage1"]["kernels"] >= 70000:
+            raise AssertionError(f"SEAL {n}x{c}: the Stage1 graph has "
+                                 f"{graphs['stage1']['kernels']} kernel nodes")
         bits = res.deciding_bits.tolist()
         first = bits.index(1) if 1 in bits else c - 1
         want = {"stage1": first + 1}
@@ -885,7 +1048,8 @@ def main() -> int:
         log(f"[seal {n}x{c}] launches {json.dumps(counts)}")
         log(f"[seal {n}x{c}] launches by kernel@lanes "
             f"{json.dumps(by_lanes(cuda_ec.launch_lanes))} = the fused "
-            "driver's (quad_mul twice a step, the commitment's twice)")
+            "driver's (quad_mul and sha256 twice a step, the commitment's "
+            "twice)")
 
     # ---- 4a. the graphs' board against the role-metered driver's ------------------
     n, c = AUCTIONS[0]
@@ -918,7 +1082,7 @@ def main() -> int:
     rc = cli.run_seal(n, c, SEED, verify=True, device=DEVICE, warmup=False)
     wall = time.perf_counter() - t0
     counts = dict(cuda_ec.launches)
-    idle = [k for k in SEAL_KERNELS if counts[k] == 0]
+    idle = [k for k in SEAL_PATH if counts[k] == 0]
     if rc != 0 or idle:
         raise AssertionError(f"metered SEAL {n}x{c}: exit code {rc} (0: "
                              f"verified, the plaintext maximum); kernels {idle} "
@@ -963,43 +1127,47 @@ def main() -> int:
         log(f"[ccs22 {n}x{c}] launches {json.dumps(counts)}")
         log(f"[ccs22 {n}x{c}] launches by kernel@lanes "
             f"{json.dumps(by_lanes(cuda_ec.launch_lanes))}")
+        graph = dict(ccs22.last_graph)
+        if graph.get("replays") != c:
+            raise AssertionError(f"CCS22 {n}x{c}: {graph.get('replays')} "
+                                 f"replays of the step graph, want {c}")
+        log(f"[ccs22 {n}x{c}] step graph: {graph['kernels']} GPU kernels a "
+            f"step (kernel nodes); warm-up step {graph['warmup_s']:.3f} s, "
+            f"capture {graph['capture_s']:.3f} s, instantiate "
+            f"{graph['instantiate_s']:.3f} s, {c} replays "
+            f"{graph['replay_s']:.3f} s ({graph['replay_s'] / c:.5f} s each, "
+            f"one synchronization after the last); its pool took "
+            f"{graph['memory_bytes'] / 2**20:.1f} MiB of device memory; a "
+            f"replay's launches {json.dumps(by_lanes(graph['launches']))}")
         if (n, c) == CCS22_AUCTIONS[0]:
-            # the steps once more, from the same draws, with every host
-            # synchronization an error: nothing is read back between steps
+            # the steps once more, uncaptured, from the same draws, with
+            # every host synchronization an error: nothing is read back
+            # between steps, and the board is the graph's, limb for limb
             pp = ccs22.pp_or_make(C, dev)
             draws = ccs22.draw(C, torch.Generator().manual_seed(SEED + n), n,
                                c, dev)
             pre = ccs22._precompute(C, pp, res.board.setup.X, draws)
             bits = torch.as_tensor(seal.bids_to_bits(bids, c), device=dev)
-            eid = torch.tensor(eval_id, device=dev)
+            eid = ccs22.eval_index(eval_id, dev)
             g1n = pp.g1.expand(n, 3, F.LIMBS)
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                announced = ccs22._scan_steps(C, pre, g1n, bits, eid)[0]
+                eager = ccs22._scan_steps(C, pre, g1n, bits, eid, graph=False)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-            if not torch.equal(announced, res.board.announced):
-                raise AssertionError(f"CCS22 {n}x{c}: the steps rerun announced "
-                                     "other bits")
-            log(f"[ccs22 {n}x{c}] the {c} steps ran with host syncs made "
-                "errors: none occurred, the same bits were announced")
-
-    # the setup's SHA-256 alone: the parties' hashes (4c scalars each, one
-    # batch) and the evaluator's (its own secrets and all n*c OT betas, one
-    # message)
-    n, c = CCS22_AUCTIONS[0]
-    for what, shape in (("parties'", (n, 4 * c * 32)),
-                        ("evaluator's", (4 * c * 32 + n * c * 32,))):
-        msg = torch.randint(0, 256, shape, generator=torch.Generator()
-                            .manual_seed(SEED), dtype=torch.uint8).to(dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sha256(msg)
-        torch.cuda.synchronize()
-        log(f"[ccs22 {n}x{c}] the {what} SHA-256 alone: {shape[-1]} B a "
-            f"message, {(shape[-1] + 9 + 63) // 64} blocks, "
-            f"{time.perf_counter() - t0:.3f} s")
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+            diff = board_diff(eager, (res.board.announced, res.board.otr1,
+                                      res.board.ots), "steps")
+            if diff:
+                raise AssertionError(f"CCS22 {n}x{c}: the uncaptured steps "
+                                     f"differ from the graph's at {diff}")
+            log(f"[ccs22 {n}x{c}] the {c} steps uncaptured ran with host syncs "
+                "made errors (none occurred) and gave the graph's announced "
+                f"bits and OT messages, limb for limb, in {eager_s:.3f} s "
+                f"(the graph's replays {graph['replay_s']:.3f} s)")
 
     # ---- 5b. the role-metered CCS22 auction, from the fused run's draws ------------
     n, c = METERED
@@ -1086,7 +1254,7 @@ def main() -> int:
                 f"({time.perf_counter() - t0:.3f} s)")
 
         # ---- 6b. P-256 on the generic plain path ----------------------------------
-        p256_phase(*P256_AUCTION, dev)
+        p256_lanes = p256_phase(*P256_AUCTION, dev)
 
         sweep.result()
     finally:
@@ -1154,6 +1322,47 @@ def main() -> int:
         })
         log(f"[time] {name} at {lanes} lanes: kernel {t['ms']:.3f} ms, plain "
             f"{t['plain_ms']:.1f} ms, bound {1e3 * max(ops_s, bytes_s):.4f} ms")
+
+    # the SHA-256 rows: phase 3b's cases; launches by lane count (any
+    # message length) on each path, the main row's (20 lanes of a Stage1
+    # transcript, a SEAL 20x32 step's) all of the path's
+    paths = {f"launches_seal_{AUCTIONS[-1][0]}x{AUCTIONS[-1][1]}":
+             auction_lanes[AUCTIONS[-1]],
+             **{f"launches_ccs22_{a}x{b}": ccs22_lanes[(a, b)]
+                for a, b in CCS22_AUCTIONS},
+             f"launches_seal_metered_{SEAL_METERED[0]}x{SEAL_METERED[1]}":
+             metered_lanes["seal"],
+             f"launches_ccs22_metered_{METERED[0]}x{METERED[1]}":
+             metered_lanes["ccs22"],
+             f"launches_hub_{HUB[0]}x{HUB[1]}": hub_lanes,
+             f"launches_mesh_{MESH[0]}x{MESH[1]}": mesh_lanes,
+             f"launches_p256_{P256_AUCTION[0]}x{P256_AUCTION[1]}": p256_lanes}
+    main_lanes = auction_lanes[AUCTIONS[0]]
+    sha_res = resources.get(HASH, {})
+    for r in sha_rows:
+        main = (r["lanes"], r["bytes"]) == (AUCTIONS[0][0], 1066)
+
+        def count(lanes_by_key, main=main, lanes=r["lanes"]):
+            return sum(v for (k, l), v in lanes_by_key.items()
+                       if k == HASH and (main or l == lanes))
+        bound = sha256_bound(r["lanes"], r["bytes"], chain_clocks)
+        report.append({
+            "name": HASH if main else f"{HASH}@{r['lanes']}x{r['bytes']}B",
+            "route": "cuda", "source": SHA_SOURCE, "replaces": SHA_REPLACES,
+            "launches": count(main_lanes), "launches_path": "seal 20x32",
+            **{k: count(v) for k, v in paths.items()},
+            "launches_validator": validator_launches[HASH],
+            "lanes": r["lanes"], "bytes": r["bytes"], "blocks": r["blocks"],
+            "max_abs_err": 0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            **bound, "library_ms": None,
+            "chain_clocks_a_round": chain_clocks, **sha_res,
+            "threads_a_block": cuda_ec.SHA256_THREADS})
+        log(f"[time] sha256 at {r['lanes']} lanes of {r['bytes']} B: kernel "
+            f"{r['ms']:.4f} ms, plain "
+            + (f"{r['plain_ms']:.1f} ms" if r["plain_ms"] is not None
+               else "not run")
+            + f", bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+            f"chain {bound['bound_chain_ms']:.4f} ms)")
 
     log(f"[done] total {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": report}))

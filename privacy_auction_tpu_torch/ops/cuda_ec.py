@@ -1,7 +1,9 @@
-"""Wrappers of the hand-written CUDA ladder kernels (`csrc/ec_ladders.cu`).
+"""Wrappers of the hand-written CUDA kernels: the EC ladders
+(`csrc/ec_ladders.cu`) and SHA-256 (`csrc/sha256.cu`).
 
 The kernels are built with `nvcc` for sm_90a at first use into
-`build/cuda_ec/` of the checkout, and bound through ctypes: pointers and
+`build/cuda_ec/` of the checkout, one library a source (`LIBRARIES`, one
+nvcc each, started together), and bound through ctypes: pointers and
 the stream go as `c_void_p`, counts as `c_int`.  Each wrapper checks
 device, dtype and shapes, makes its inputs contiguous, allocates the output
 with `torch.empty`, launches on the current stream, raises if the launcher
@@ -21,6 +23,7 @@ path before it gets here.
 | base_mul_add_glv   | base_mul_add_glv_kernel<G> | _base_mul_add_glv_kernel (pallas_ec.py:436) |
 | base_mul_add       | base_mul_add_kernel<G>     | _base_mul_add_kernel (pallas_ec.py:496) |
 | pt_add             | pt_add_kernel<G>           | _pt_add_kernel (pallas_ec.py:399)       |
+| sha256             | sha256_kernel              | none: the JAX package's SHA-256 loop (ops/sha256.py) |
 
 The seven `<G>` kernels (GROUP_KERNELS) run G threads per lane
 (`csrc/ec_group.cuh`), the six ladders with their window tables in shared
@@ -35,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import math
 import os
 import pathlib
 import re
@@ -48,7 +52,9 @@ import torch
 from ..curves import COMB_SIZE, COMB_WINDOWS
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ec_ladders.cu", "ec_device.cuh", "ec_group.cuh")
+SOURCES = ("ec_ladders.cu", "ec_device.cuh", "ec_group.cuh", "sha256.cu")
+# the libraries a build makes, each from one source
+LIBRARIES = {"libpa_ec.so": "ec_ladders.cu", "libpa_sha256.so": "sha256.cu"}
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cuda_ec"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,10 +63,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 CURVE = "secp256k1"
 KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv",
            "scalar_mul", "base_mul_add", "pt_add")
-# Launch counts by wrapper; `dual_mul` counts its 64-window launches (full
-# scalars, the ladder without GLV) under "dual_mul_64", apart from the
-# 33-window launches that the GLV split gives it.
-launches = dict.fromkeys(KERNELS + ("dual_mul_64",), 0)
+# the launch rows of the EC kernels: `dual_mul` counts its 64-window
+# launches (full scalars, the ladder without GLV) under "dual_mul_64",
+# apart from the 33-window launches that the GLV split gives it
+EC_ROWS = KERNELS + ("dual_mul_64",)
+# the hash kernel's row (it is curve-free: every curve's paths launch it)
+SHA256 = "sha256"
+# Launch counts by row.
+launches = dict.fromkeys(EC_ROWS + (SHA256,), 0)
 # The same launches by (row, lanes): how wide each launch was.
 launch_lanes: dict[tuple[str, int], int] = {}
 
@@ -130,12 +140,14 @@ def comb_shape(lanes: int, group: int, warps: int | None = None,
 
 
 class Build:
-    """The loaded library and what its build printed; `seconds` is None when
+    """The loaded libraries (`lib` the EC kernels', at `path`; `sha` the
+    SHA-256 kernel's) and what their builds printed; `seconds` is None when
     an earlier build of the same sources and flags was loaded."""
 
-    def __init__(self, lib: ctypes.CDLL, path: pathlib.Path,
+    def __init__(self, lib: ctypes.CDLL, sha: ctypes.CDLL, path: pathlib.Path,
                  seconds: float | None, ptxas_log: str):
         self.lib = lib
+        self.sha = sha
         self.path = path
         self.seconds = seconds
         self.ptxas_log = ptxas_log
@@ -167,7 +179,8 @@ class Build:
 
 def _row(name: str) -> str | None:
     """The wrapper whose kernel a mangled name holds."""
-    return next((k for k in KERNELS if f"{k}_kernel" in name), None)
+    return next((k for k in KERNELS + (SHA256,) if f"{k}_kernel" in name),
+                None)
 
 
 def kernel_key(name: str) -> str | None:
@@ -229,10 +242,11 @@ def _nvcc() -> str:
 
 
 def build() -> Build:
-    """Load the kernel library, compiling it first when no build of these
-    sources and flags exists.  The build directory is named by their hash;
-    a new build is written under temporary names and renamed into place, so
-    a process never overwrites a library another one has loaded."""
+    """Load the kernel libraries, compiling them first when no build of
+    these sources and flags exists: one nvcc a library, all started
+    together.  The build directory is named by their hash; a new build is
+    written under temporary names and renamed into place, so a process
+    never overwrites a library another one has loaded."""
     global _build
     if _build is not None:
         return _build
@@ -241,24 +255,30 @@ def build() -> Build:
         digest.update((CSRC / name).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
-    lib_path = out_dir / "libpa_ec.so"
+    paths = {name: out_dir / name for name in LIBRARIES}
     log_path = out_dir / "ptxas.log"
     seconds = None
-    if not lib_path.exists():
+    if not all(p.exists() for p in paths.values()):
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp_lib = out_dir / f"libpa_ec.{os.getpid()}.so"
+        tmp = {name: out_dir / f"{name}.{os.getpid()}" for name in LIBRARIES}
         tmp_log = out_dir / f"ptxas.{os.getpid()}.log"
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib), str(CSRC / "ec_ladders.cu")],
-            capture_output=True, text=True)
+        procs = {name: subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp[name]), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for name, src in LIBRARIES.items()}
+        logs = {name: proc.communicate()[1] for name, proc in procs.items()}
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        tmp_log.write_text(proc.stderr)
+        for name, proc in procs.items():
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc {LIBRARIES[name]} failed "
+                                   f"({proc.returncode}):\n{logs[name]}")
+        tmp_log.write_text("".join(logs.values()))
         os.replace(tmp_log, log_path)
-        os.replace(tmp_lib, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+        for name in LIBRARIES:
+            os.replace(tmp[name], paths[name])
+    lib = ctypes.CDLL(str(paths["libpa_ec.so"]))
+    sha = ctypes.CDLL(str(paths["libpa_sha256.so"]))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.pa_mul_comb.argtypes = [P, P, P] + [I] * 5 + [P]
     lib.pa_dual_mul.argtypes = [P] * 5 + [I] * 6 + [P]
@@ -271,7 +291,11 @@ def build() -> Build:
                lib.pa_base_mul_add_glv, lib.pa_scalar_mul, lib.pa_base_mul_add,
                lib.pa_pt_add):
         fn.restype = I
-    _build = Build(lib, lib_path, seconds, log_path.read_text())
+    L = ctypes.c_longlong
+    sha.pa_sha256.argtypes = [P, P, L, L, I, I, P]
+    sha.pa_sha256_chain_clocks.argtypes = [P, I, P, P, P]
+    sha.pa_sha256.restype = sha.pa_sha256_chain_clocks.restype = I
+    _build = Build(lib, sha, paths["libpa_ec.so"], seconds, log_path.read_text())
     return _build
 
 
@@ -608,6 +632,46 @@ def pt_add(curve, P, Q, shape=None) -> torch.Tensor:
     return out.reshape(batch + (3, 16))
 
 
+# SHA-256: one thread a message, in blocks of this many threads (a lane's
+# chain of blocks bounds the batches the paths hash, so few threads a block
+# spread them over more SMs)
+SHA256_THREADS = 64
+
+
+def sha256(msg: torch.Tensor) -> torch.Tensor:
+    """SHA-256 of (..., L) uint8 messages on the card -> (..., 8) int64
+    digest words (big-endian H0..H7), one launch; the padding is made in
+    the kernel."""
+    if msg.device.type != "cuda":
+        raise ValueError(f"sha256: the kernel needs CUDA tensors, got "
+                         f"{msg.device}")
+    if msg.dtype != torch.uint8:
+        raise TypeError(f"sha256: expected uint8 bytes, got {msg.dtype}")
+    batch, L = tuple(msg.shape[:-1]), msg.shape[-1]
+    n = math.prod(batch)
+    m = msg.reshape(n, L).contiguous()
+    out = torch.empty((n, 8), dtype=torch.int64, device=m.device)
+    aligned = int(L % 4 == 0 and m.data_ptr() % 4 == 0)
+    _check("sha256", build().sha.pa_sha256(
+        _ptr(m), _ptr(out), n, L, SHA256_THREADS, aligned, _stream(m.device)))
+    _count(SHA256, n)
+    return out.reshape(batch + (8,))
+
+
+def sha256_chain_clocks(device, reps: int = 1 << 16) -> float:
+    """The clocks one link of SHA-256's critical chain takes on `device`
+    (Sigma1 of e, then the add that makes the new e; csrc/sha256.cu), from
+    one thread timing `reps` links with clock64(): a round's least latency,
+    for the bound of a lane's chain."""
+    words = torch.tensor([0x6A09E667, 0x0BB67AE8, 0x3C6EF372],
+                         dtype=torch.int32, device=device)
+    clocks = torch.zeros(1, dtype=torch.int64, device=device)
+    sink = torch.zeros(1, dtype=torch.int32, device=device)
+    _check("sha256_chain_clocks", build().sha.pa_sha256_chain_clocks(
+        _ptr(words), reps, _ptr(clocks), _ptr(sink), _stream(device)))
+    return int(clocks.item()) / reps
+
+
 # --------------------------------------------------------------------------
 # work counts for the operations bound
 # --------------------------------------------------------------------------
@@ -653,3 +717,18 @@ def int_muls(kernel: str, lanes: int, windows: int = 33) -> int:
     else:
         raise ValueError(kernel)
     return lanes * (adds * MULS_PT_ADD + dbls * MULS_PT_DBL)
+
+
+# 32-bit integer operations of one SHA-256 block, for the bound: a round
+# is Sigma1 and Sigma0 (three funnel shifts and a 3-input xor each), Ch
+# and Maj (one 3-input logic op each) and four adds (T1's five terms in
+# two 3-input adds, d + T1, T1 + T2 in one 3-input add); each of the 48
+# scheduled words is sigma0 and sigma1 (two funnel shifts, a shift and a
+# 3-input xor each) and two 3-input adds; then 8 adds into the state.
+# Loads and the assembly of words from bytes are not counted.
+SHA256_OPS_PER_BLOCK = 64 * (4 + 4 + 1 + 1 + 4) + 48 * (4 + 4 + 2) + 8
+
+
+def sha256_blocks(msg_len: int) -> int:
+    """The blocks of a padded message of msg_len bytes."""
+    return (msg_len + 9 + 63) // 64

@@ -1,11 +1,18 @@
-"""Batched SHA-256 in PyTorch, for the Fiat-Shamir challenges.
+"""Batched SHA-256, for the Fiat-Shamir challenges and CCS22's
+commitment hash.
 
 Counterpart of `privacy_auction_tpu/ops/sha256.py`: one hash state per
-batch lane, every lane hashing a message of the same static length, so the
-padding is a constant, kept on each device it is used on, and there is no
-data-dependent control flow (a CUDA graph can capture a call).
-32-bit words are held in int64 and masked after each sum; a rotation reads
-the low half of the word duplicated into 64 bits.
+batch lane, every lane hashing a message of the same static length.
+`sha256` dispatches by device: a CUDA tensor goes to the hand-written
+kernel (`cuda_ec.sha256`, csrc/sha256.cu: one thread a message, one
+launch, capture-safe), on any curve, since the hash does not depend on
+it; a CPU tensor takes the plain version, `sha256_plain`.  There is no
+fallback: a failed build or launch raises.
+
+The plain version pads with a constant kept on each device it is used on
+and unrolls the rounds into eager ops; its 32-bit words are held in int64
+and masked after each sum (torch on the CPU has no uint32 shift), and a
+rotation reads the low half of the word duplicated into 64 bits.
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ import functools
 
 import numpy as np
 import torch
+
+from . import cuda_ec
 
 M32 = 0xFFFFFFFF
 
@@ -88,7 +97,14 @@ def _padding(msg_len: int, device: torch.device) -> torch.Tensor:
 
 def sha256(msg: torch.Tensor) -> torch.Tensor:
     """SHA-256 of byte messages: (..., L) uint8 -> (..., 8) int64 digest words
-    (big-endian H0..H7, each in [0, 2**32))."""
+    (big-endian H0..H7, each in [0, 2**32)); the kernel off the CPU."""
+    if msg.device.type == "cpu":
+        return sha256_plain(msg)
+    return cuda_ec.sha256(msg)
+
+
+def sha256_plain(msg: torch.Tensor) -> torch.Tensor:
+    """`sha256` in eager PyTorch ops, on any device."""
     L = msg.shape[-1]
     batch = msg.shape[:-1]
     pad = _padding(L, msg.device)

@@ -19,9 +19,15 @@ through a 2-message DDH oblivious transfer, and then announces:
 The fused driver hoists every ladder out of the steps, as the JAX package
 does: the OT messages factor over the evaluator's choice bit alpha, so the
 seven ladder passes over all (n, c) lanes run once (`_precompute`) and each
-step is point adds and branchless selects (`_scan_steps`, a host loop).  The
-announced bit drives only device-side bookkeeping, so the steps never read
-it back; the run synchronizes once, at the end.
+step is point adds and branchless selects: `step_body`, the counterpart of
+the JAX package's scan body (`_scan_steps`), reads the step's entries of
+the streams through a step index tensor.  The announced bit drives only
+device-side bookkeeping, so the steps never read it back.  On a CUDA device
+without a mesh the c steps are one program on the card, as the JAX scan
+is: they replay one captured CUDA graph of the body (`_Steps`), which
+advances the step index itself, and the run synchronizes once, after the
+last replay.  On the CPU and on a mesh (its gloo collectives cannot be
+captured) the same body runs uncaptured, step by step.
 
 The role-metered driver (`run_auction(times=...)`, `_run_metered`) runs
 each step as the JAX package's does, one call a phase: BES encoding and the
@@ -47,18 +53,20 @@ rank announces the same bits.
 from __future__ import annotations
 
 import functools
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..curves import Curve, make_comb_table
-from ..ops import ec
+from ..ops import cuda_ec, ec
 from ..ops import field as F
 from ..ops.sha256 import digest_to_scalar, sha256
 from ..parallel import mesh as M
-from .phases import phase_runner
-from .seal import avnet_rows, bids_to_bits, bits_to_int
+from .phases import capture_graph, phase_runner
+from .seal import _take, avnet_rows, bids_to_bits, bits_to_int
 
 LIMBS = F.LIMBS
 
@@ -118,6 +126,13 @@ class SetupPub(NamedTuple):
     com: torch.Tensor   # (n, 3, L) commitments
 
 
+def eval_index(eval_id, device):
+    """The evaluator's id as a one-element integer tensor on `device`.  Made
+    from a host int it is a host copy, so the fused steps take it made
+    before their capture."""
+    return torch.as_tensor(eval_id, device=device).reshape(1)
+
+
 def _lane_ids(n: int, device, mesh=None):
     """The lane ids of this rank's n rows."""
     rows = M.bidder_rows(mesh, n * M.mesh_size(mesh))
@@ -140,7 +155,7 @@ def setup_from(curve: Curve, pp: PubParams, bids, sec: SetupSec, eval_id,
                      for v in (sec.x, sec.r, sec.s, sec.t)], dim=-1)
     H = digest_to_scalar(fn, sha256(msg))                  # (n, L)
     if eval_betas is not None:
-        eid = torch.as_tensor(eval_id, device=dev).reshape(1)
+        eid = eval_index(eval_id, dev)
         msg_all, betas_all = M.gather_bidders(mesh, (msg, eval_betas))
         emsg = torch.cat([msg_all.index_select(0, eid)[0],
                           F.to_bytes_be(betas_all).reshape(-1)])
@@ -246,8 +261,9 @@ def _announce(curve: Curve, M0, own_B, d, eval_id, mesh=None):
     Announce its own d OR (sum of the lanes != infinity).  M0 and own_B
     hold this rank's rows, d (the effective bits) every lane's.  The
     evaluator's lane is read with `index_select`, which needs no read back
-    to the host (indexing by a tensor would)."""
-    eid = torch.as_tensor(eval_id, device=M0.device).reshape(1)
+    to the host (indexing by a tensor would); `eval_id` given as
+    `eval_index`'s tensor is not copied."""
+    eid = eval_index(eval_id, M0.device)
     M0 = ec.select(_lane_ids(M0.shape[0], M0.device, mesh) == eid, own_B, M0)
     total = ec.ec_sum(curve, M.gather_bidders(mesh, M0), dim=0)
     return (d.index_select(0, eid)[0] != 0) | ~ec.is_infinity(total)
@@ -324,42 +340,122 @@ def _precompute(curve: Curve, pp: PubParams, X, draws: Draws,
                          (enc0, enc1, T2, M1, gb, hb, z, bz, E, m0a)))
 
 
-def _scan_steps(curve: Curve, pre: Precomputed, g1n, bits, eval_id,
-                mesh=None):
+def step_body(curve: Curve, step, pre: Precomputed, g1n, bits, eid, in_race,
+              mesh=None):
+    """One step over the precomputed streams, the counterpart of the JAX
+    package's scan body (`_scan_steps`): select the step's ciphertext B by
+    the effective bit, assemble the evaluator's OT message and the senders'
+    reply from the hoisted passes by the evaluator's choice bit, recover
+    the veto sum, announce, and carry the race.
+
+    step: the step index, a one-element integer tensor on the device (or an
+    int); the step's entries of `pre` (c, n, ...) and `bits` (n, c) are
+    read through it, so nothing is read back to the host and a CUDA graph
+    of the body serves every step.  eid: `eval_index`'s tensor.  in_race
+    (n,): the carried race.  Returns (announced () bool, new in_race, the
+    step's OTR1 and OTS)."""
+    n = bits.shape[0]
+    p = Precomputed(*(_take(a, step) for a in pre))
+    d = _take(bits, step, 1) & in_race
+    B = ec.select(d == 0, p.enc0, p.enc1)
+    d_all = M.gather_bidders(mesh, d)
+    alpha = (d_all.index_select(0, eid) != 0).expand(n)
+    # the receiver's message and both sender masks, each with and without
+    # the alpha term, in one batched add
+    up = ec.add(curve, torch.stack([p.gb, p.hb, p.m0a, p.m0a]),
+                torch.stack([g1n, p.T2, p.E, ec.neg(curve, p.E)]))
+    G = ec.select(alpha, up[0], p.gb)
+    H = ec.select(alpha, up[1], p.hb)
+    mask0 = ec.select(alpha, up[2], p.m0a)
+    mask1 = ec.select(alpha, p.m0a, up[3])
+    C0, C1 = ec.add(curve, torch.stack([mask0, mask1]),
+                    torch.stack([B, p.M1]))
+    M0 = ec.add(curve, C0, ec.neg(curve, p.bz))
+    ann = _announce(curve, M0, B, d_all, eid, mesh)
+    return (ann, update_race(in_race, d, ann), OTR1(T2=p.T2, G=G, H=H),
+            OTS(z=p.z, C0=C0, C1=C1))
+
+
+# What the CUDA graph of the last fused CCS22 auction on a card did: the
+# warm-up step's, the capture's and the instantiation's seconds, kernel
+# nodes (GPU kernels a step), the device memory the graph pool took
+# (bytes), the replays and their seconds (from the first replay to the
+# synchronization after the last), and a replay's kernel launches by
+# (kernel, lanes).  Replaced at each such auction; `_Steps` writes it.
+last_graph: dict = {}
+
+
+class _Steps:
+    """The fused driver's c steps over persistent buffers: the step index
+    (a device tensor that the body advances), the carried in_race, and the
+    board's announced bits and the assembled OT messages (G, H, C0, C1),
+    (c, ...) buffers written at the index; T2 and z are the precomputed
+    streams themselves.  `run()` is one step of `step_body` on them.  With
+    `graph`, the c steps replay one CUDA graph of `run`, captured before
+    the first step, and nothing of a replay comes from the host."""
+
+    def __init__(self, curve: Curve, pre: Precomputed, g1n, bits, eid, mesh,
+                 graph: bool):
+        n, c = bits.shape
+        dev = bits.device
+        self.curve, self.pre, self.g1n, self.bits = curve, pre, g1n, bits
+        self.eid, self.mesh, self.graph = eid, mesh, graph
+        self.step = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.in_race = torch.ones((n,), dtype=F.DTYPE, device=dev)
+        self.announced = torch.zeros((c,), dtype=torch.bool, device=dev)
+        self.msgs = [torch.empty((c, n, 3, LIMBS), dtype=F.DTYPE, device=dev)
+                     for _ in range(4)]
+
+    def run(self):
+        """One step at the index into the buffers, then the index + 1;
+        reads nothing back."""
+        ann, race, r1, ots = step_body(self.curve, self.step, self.pre,
+                                       self.g1n, self.bits, self.eid,
+                                       self.in_race, self.mesh)
+        self.in_race.copy_(race)
+        self.announced.index_copy_(0, self.step, ann.reshape(1))
+        for buf, t in zip(self.msgs, (r1.G, r1.H, ots.C0, ots.C1)):
+            buf.index_copy_(0, self.step, t.unsqueeze(0))
+        self.step.add_(1)
+
+    def __call__(self):
+        """The c steps, most significant bit first; returns (announced (c,)
+        bool, OTR1 and OTS with leading axis c)."""
+        c = self.bits.shape[1]
+        if not self.graph:
+            for _ in range(c):
+                self.run()
+        else:
+            last_graph.clear()
+            with record_function("ccs22.capture"):
+                graph, stats = capture_graph(self.run,
+                                             [self.step, self.in_race])
+            t0 = time.perf_counter()
+            with record_function("ccs22.replays"):
+                for _ in range(c):
+                    graph.replay()
+                    cuda_ec.add_launches(stats["launches"])
+                torch.cuda.synchronize(self.bits.device)
+            stats["replays"] = c
+            stats["replay_s"] = time.perf_counter() - t0
+            last_graph.update(stats)
+        G, H, C0, C1 = self.msgs
+        return (self.announced, OTR1(T2=self.pre.T2, G=G, H=H),
+                OTS(z=self.pre.z, C0=C0, C1=C1))
+
+
+def _scan_steps(curve: Curve, pre: Precomputed, g1n, bits, eid, mesh=None,
+                graph: bool | None = None):
     """The c steps over the precomputed streams, most significant bit
-    first.  Returns (announced (c,) bool, OTR1 and OTS with leading axis c),
-    all on the device: nothing is read back between steps (but the gathers
-    of a mesh of gloo ranks, through the host)."""
-    n, c = bits.shape
-    dev = bits.device
-    eid = torch.as_tensor(eval_id, device=dev).reshape(1)
-    in_race = torch.ones((n,), dtype=F.DTYPE, device=dev)
-    announced, r1s, otss = [], [], []
-    for step in range(c):
-        p = Precomputed(*(a[step] for a in pre))
-        d = bits[:, step] & in_race
-        B = ec.select(d == 0, p.enc0, p.enc1)
-        d_all = M.gather_bidders(mesh, d)
-        alpha = (d_all.index_select(0, eid) != 0).expand(n)
-        # the receiver's message and both sender masks, each with and
-        # without the alpha term, in one batched add
-        up = ec.add(curve, torch.stack([p.gb, p.hb, p.m0a, p.m0a]),
-                    torch.stack([g1n, p.T2, p.E, ec.neg(curve, p.E)]))
-        G = ec.select(alpha, up[0], p.gb)
-        H = ec.select(alpha, up[1], p.hb)
-        mask0 = ec.select(alpha, up[2], p.m0a)
-        mask1 = ec.select(alpha, p.m0a, up[3])
-        C0, C1 = ec.add(curve, torch.stack([mask0, mask1]),
-                        torch.stack([B, p.M1]))
-        M0 = ec.add(curve, C0, ec.neg(curve, p.bz))
-        ann = _announce(curve, M0, B, d_all, eid, mesh)
-        in_race = update_race(in_race, d, ann)
-        announced.append(ann)
-        r1s.append(OTR1(T2=p.T2, G=G, H=H))
-        otss.append(OTS(z=p.z, C0=C0, C1=C1))
-    return (torch.stack(announced),
-            OTR1(*(torch.stack(f) for f in zip(*r1s))),
-            OTS(*(torch.stack(f) for f in zip(*otss))))
+    first, `step_body` a step: on one CUDA graph replayed c times where
+    `graph` (by default on a CUDA device without a mesh), uncaptured
+    otherwise.  eid: `eval_index`'s tensor.  Returns (announced (c,) bool,
+    OTR1 and OTS with leading axis c), all on the device: nothing is read
+    back between steps (but the gathers of a mesh of gloo ranks, through
+    the host)."""
+    if graph is None:
+        graph = bits.device.type == "cuda" and mesh is None
+    return _Steps(curve, pre, g1n, bits, eid, mesh, graph)()
 
 
 class Board(NamedTuple):
@@ -388,7 +484,7 @@ def _run_metered(curve: Curve, pp: PubParams, pub: SetupPub, bits, eval_id,
 
     n, c = bits.shape
     sec, beta = draws.sec, draws.beta
-    eid = torch.as_tensor(eval_id, device=bits.device).reshape(1)
+    eid = eval_index(eval_id, bits.device)
     in_race = torch.ones((n,), dtype=F.DTYPE, device=bits.device)
     announced, r1s, otss = [], [], []
     for step in range(c):
@@ -476,7 +572,7 @@ def run_auction(curve: Curve, bids, c: int, eval_id: int = 0,
         pre = phase("precompute", _precompute, curve, pp, pub.X, draws, mesh)
         announced, r1, ots = phase("steps", _scan_steps, curve, pre,
                                    pp.g1.expand(bits.shape[0], 3, LIMBS), bits,
-                                   eval_id, mesh)
+                                   eval_index(eval_id, bits.device), mesh)
     else:
         announced, r1, ots = _run_metered(curve, pp, pub, bits, eval_id,
                                           draws, phase, mesh)

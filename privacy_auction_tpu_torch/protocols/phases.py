@@ -1,5 +1,5 @@
-"""Per-phase profiler ranges, wall times and role times, shared by the
-auction drivers."""
+"""Per-phase profiler ranges, wall times and role times, and the capture
+of a fused step into a CUDA graph, shared by the auction drivers."""
 
 from __future__ import annotations
 
@@ -7,6 +7,8 @@ import time
 
 import torch
 from torch.profiler import record_function
+
+from ..ops import cuda_ec
 
 
 def phase_runner(prefix: str, phase_times: dict | None,
@@ -32,3 +34,46 @@ def phase_runner(prefix: str, phase_times: dict | None,
                 times.add_time(role, seconds)
             return out
     return phase
+
+
+def capture_graph(run, carried, pool=None):
+    """Capture `run()`, one step on persistent buffers that reads nothing
+    back to the host, into a CUDA graph.  First it warms `run` up once on a
+    side stream (that builds the kernels, fills the cached constants and
+    sets up cuBLAS, none of which a capture may do) and puts the `carried`
+    tensors back; then it captures `run` on that stream into `pool` (a new
+    pool when None) and instantiates the graph.  The warm-up's launches are
+    not counted; the capture's are kept by (kernel, lanes), for
+    `cuda_ec.add_launches` at each replay.  A capture that fails raises.
+    Returns (graph, stats): the warm-up's, the capture's and the
+    instantiation's seconds, the graph's kernel nodes, the device memory
+    its pool took (bytes), the capture's launches, and replays and their
+    seconds at 0 for the caller to fill."""
+    dev = carried[0].device
+    saved = [t.clone() for t in carried]
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    t0 = time.perf_counter()
+    with cuda_ec.recorded(), torch.cuda.stream(stream):
+        run()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    for t, v in zip(carried, saved):
+        t.copy_(v)
+    torch.cuda.synchronize(dev)
+    warm = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved(dev)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    t0 = time.perf_counter()
+    with cuda_ec.recorded() as launches, torch.cuda.graph(
+            graph, pool=pool, stream=stream,
+            capture_error_mode="thread_local"):
+        run()
+    captured = time.perf_counter() - t0
+    kernels, instantiate = cuda_ec.instantiate(graph)
+    torch.cuda.empty_cache()
+    return graph, {
+        "warmup_s": warm, "capture_s": captured, "instantiate_s": instantiate,
+        "kernels": kernels,
+        "memory_bytes": torch.cuda.memory_reserved(dev) - held,
+        "replays": 0, "replay_s": 0.0, "launches": launches}

@@ -56,7 +56,7 @@ from ..curves import Curve
 from ..ops import cuda_ec, ec
 from ..ops import field as F
 from ..parallel import mesh as M
-from .phases import phase_runner
+from .phases import capture_graph, phase_runner
 
 LIMBS = F.LIMBS
 
@@ -563,46 +563,18 @@ class _Steps:
         self.words[stage2].copy_(words)
 
     def _capture(self, stage2: bool):
-        """Warm the body up once on a side stream (it builds the kernels,
-        fills the cached constants and sets up cuBLAS, none of which a
-        capture may do), put the carried state back, then capture the body
-        on that stream into a graph.  The warm-up's launches are not
-        counted; the capture's are kept and counted at each replay.  A
-        capture that fails raises."""
-        dev = self.b.device
-        carried = [self.in_race, *self.prev, self.ok]
-        saved = [t.clone() for t in carried]
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        t0 = time.perf_counter()
-        with cuda_ec.recorded(), torch.cuda.stream(stream):
-            self.run(stage2)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        for t, v in zip(carried, saved):
-            t.copy_(v)
-        torch.cuda.synchronize(dev)
-        warm = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        held = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        """One graph of `run(stage2)` (`phases.capture_graph`: a warm-up
+        step on a side stream, the carried state put back, the capture);
+        its stats go to `last_graphs`.  A capture that fails raises."""
         if self.pool is None:
             # the stages share one pool: Stage1 never replays once Stage2
             # is captured (the junction does not reset)
             self.pool = torch.cuda.graph_pool_handle()
-        t0 = time.perf_counter()
-        with cuda_ec.recorded() as launches, torch.cuda.graph(
-                graph, pool=self.pool, stream=stream,
-                capture_error_mode="thread_local"):
-            self.run(stage2)
-        captured = time.perf_counter() - t0
-        kernels, instantiate = cuda_ec.instantiate(graph)
-        torch.cuda.empty_cache()
-        last_graphs["stage2" if stage2 else "stage1"] = {
-            "warmup_s": warm, "capture_s": captured,
-            "instantiate_s": instantiate, "kernels": kernels,
-            "memory_bytes": torch.cuda.memory_reserved(dev) - held,
-            "replays": 0, "replay_s": 0.0, "launches": launches}
-        return graph, launches
+        graph, stats = capture_graph(lambda: self.run(stage2),
+                                     [self.in_race, *self.prev, self.ok],
+                                     self.pool)
+        last_graphs["stage2" if stage2 else "stage1"] = stats
+        return graph, stats["launches"]
 
     def __call__(self, generator):
         """The c steps from `generator`'s nonces, most significant bit

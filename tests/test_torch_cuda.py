@@ -278,3 +278,40 @@ def test_ladders64_group_kernels_hold_jax_golden_on_card(card):
                 out = cuda_ec.base_mul_add(C, g("k"), g("P"), g("t"), g0b, shape)
             L.check(name, out)
         assert cuda_ec.launches[name] == before + len(cuda_ec.GROUPS[name])
+
+
+def test_sha256_kernel_and_ccs22_step_graph_on_card(card):
+    """The SHA-256 kernel against its plain version on the card and
+    against hashlib at block boundaries and ragged lane counts, one launch
+    a call; then CCS22's steps replayed from one CUDA graph give the
+    uncaptured steps' board, limb for limb, from the same draws."""
+    import hashlib
+
+    from privacy_auction_tpu_torch.ops import sha256 as S
+
+    gen = torch.Generator().manual_seed(7)
+    for length in (0, 55, 56, 64, 119, 1066):
+        host = torch.randint(0, 256, (LANES, length), generator=gen,
+                             dtype=torch.uint8)
+        before = cuda_ec.launches["sha256"]
+        got = S.sha256(host.to(card))
+        assert cuda_ec.launches["sha256"] == before + 1
+        assert torch.equal(got, S.sha256_plain(host.to(card)))
+        for i in (0, 17, LANES - 1):
+            want = hashlib.sha256(host[i].numpy().tobytes()).digest()
+            assert got[i].tolist() == [int.from_bytes(want[4 * j:4 * j + 4], "big")
+                                       for j in range(8)]
+    n, c = 6, 4
+    bids = [5, 9, 3, 12, 12, 0]
+    draws = ccs22.draw(C, torch.Generator().manual_seed(8), n, c, card)
+    res = ccs22.run_auction(C, bids, c, n - 1, device=card, draws=draws)
+    assert res.max_bid == max(bids) and ccs22.last_graph["replays"] == c
+    pp = ccs22.pp_or_make(C, card)
+    pre = ccs22._precompute(C, pp, res.board.setup.X, draws)
+    bits = torch.as_tensor(seal.bids_to_bits(bids, c), device=card)
+    announced, r1, ots = ccs22._scan_steps(
+        C, pre, pp.g1.expand(n, 3, F.LIMBS), bits,
+        ccs22.eval_index(n - 1, card), graph=False)
+    assert torch.equal(announced, res.board.announced)
+    for a, b in zip(r1 + ots, res.board.otr1 + res.board.ots):
+        assert torch.equal(a, b)

@@ -4,7 +4,10 @@ falls back to the plain path.  The dispatch goes by curve as the JAX
 package's `_pallas_ok` does: a secp256k1 tensor off the CPU always goes to
 its kernel, a P-256 tensor never does, and each kernel wrapper refuses a
 curve it is not written for.  The kernel validator on the plain versions
-is tests/test_torch_validate.py."""
+is tests/test_torch_validate.py.  SHA-256 dispatches by device alone (the
+hash does not depend on the curve): a CPU tensor takes the plain version,
+any other reaches the kernel's wrapper, which refuses a tensor that is not
+on a card."""
 
 import subprocess
 import sys
@@ -17,6 +20,7 @@ import torch
 from privacy_auction_tpu_torch import interop, nizk
 from privacy_auction_tpu_torch.curves import SECP256K1 as C, get_curve
 from privacy_auction_tpu_torch.ops import cuda_ec, ec
+from privacy_auction_tpu_torch.ops import sha256 as S
 from privacy_auction_tpu_torch.protocols import ccs22, seal
 
 torch.set_num_threads(1)
@@ -71,9 +75,33 @@ def _check_cuda_entry_points_raise_without_a_card():
     for launch in (lambda: cuda_ec.quad_mul(C, *[P, k] * 4, 33),
                    lambda: cuda_ec.scalar_mul(C, P, k),
                    lambda: cuda_ec.base_mul_add(C, k, P, k, C.tensor("g0_table", "cpu")),
-                   lambda: cuda_ec.pt_add(C, P, P)):
+                   lambda: cuda_ec.pt_add(C, P, P),
+                   lambda: cuda_ec.sha256(torch.zeros((1, 4), dtype=torch.uint8))):
         with pytest.raises(ValueError, match="CUDA"):
             launch()
+
+
+def _check_sha256_dispatch_goes_by_device():
+    """A CPU tensor takes the plain version; a tensor on another device
+    ("meta" here; "cuda" on the card) reaches the kernel's wrapper, with no
+    fallback (the wrapper here records its call and raises)."""
+    calls = []
+
+    def spy(kind):
+        def f(msg):
+            calls.append((kind, msg.device.type, tuple(msg.shape)))
+            if kind == "kernel":
+                raise RuntimeError("no card")
+            return torch.zeros(msg.shape[:-1] + (8,), dtype=torch.int64)
+        return f
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(S, "sha256_plain", spy("plain"))
+        mp.setattr(cuda_ec, "sha256", spy("kernel"))
+        S.sha256(torch.zeros((2, 70), dtype=torch.uint8))
+        with pytest.raises(RuntimeError, match="no card"):
+            S.sha256(torch.zeros((2, 70), dtype=torch.uint8, device="meta"))
+    assert calls == [("plain", "cpu", (2, 70)), ("kernel", "meta", (2, 70))]
 
 
 # each dispatcher of ops/ec.py: (its call, the plain version it may take,
@@ -212,12 +240,14 @@ def _check_interop_round_trip_keeps_boards_by_value():
 # count, and one-test files go last, after the long-running files of the
 # tier-1 run have been handed out (see ROADMAP.md, Queue 3).
 def test_port_package_contract(capsys, monkeypatch):
-    """No JAX, no CPU fallback for CUDA work, dispatch by curve, the CLI's
-    exit codes, and boards by value through interop."""
+    """No JAX, no CPU fallback for CUDA work, dispatch by curve (the EC
+    kernels) and by device (SHA-256), the CLI's exit codes, and boards by
+    value through interop."""
     _check_port_imports_no_jax()
     if not torch.cuda.is_available():
         _check_cuda_entry_points_raise_without_a_card()
     _check_dispatch_goes_by_curve()
+    _check_sha256_dispatch_goes_by_device()
     _check_kernels_refuse_other_curves()
     _check_cli_exit_codes(capsys, monkeypatch)
     _check_interop_round_trip_keeps_boards_by_value()

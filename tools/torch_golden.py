@@ -2,7 +2,7 @@
 
     JAX_PLATFORMS=cpu python tools/torch_golden.py \
         [--only seal ccs22 ladders64 seal_metered ccs22_metered wire p256
-                seal_step]
+                seal_step ccs22_step sha256]
 
 Runs the JAX package (`privacy_auction_tpu`) on the CPU from seeded inputs
 and writes `tests/data/torch_golden_<name>.npz` for each name (all of them by
@@ -70,6 +70,22 @@ body, jitted, one step at a time (this process only).
 `tests/test_torch_seal_step_body.py` and `test_torch_seal_full_step.py`
 hold the port's `step_body`, `full_step`, `step_stage1`, `step_stage2` and
 `serialize_affine` to them.
+
+`ccs22_step` records CCS22's fused steps at bids [5, 3, 2, 6], c = 3
+(every lane's effective bit and the race change from step to step): the
+scalars the JAX driver drew, the precomputed point streams `_precompute`
+gives the step scan, and for the evaluator at lane 0 and at the last lane
+the scan's (`_jit_scan_steps`) announced bits, OTR1 and OTS, step-major.
+`tests/test_torch_ccs22_step_body.py` holds the port's `step_body`, run
+a step at a time, and its uncaptured steps to them.
+
+`sha256` records the JAX package's `sha256` (jitted) of seeded messages at
+every length the paths hash at small sizes -- the PoKDLog, PoWFCom, Stage1
+and Stage2 transcripts (218, 543, 1066 and 1846 bytes) and CCS22's bidder
+and evaluator messages at 4x3 (384 and 768 bytes) -- and at the block
+boundaries 0, 55, 56, 63, 64 and 119; three messages a length.
+`tests/test_torch_sha256_paths.py` holds the port's plain SHA-256 to them
+and to hashlib.
 
 `p256` records NIST P-256 on the JAX package's generic path (Barrett
 fields, RCB16 Alg 1/3, 64-window ladders, no Pallas): for both fields
@@ -741,12 +757,74 @@ def p256_arrays():
     return out
 
 
+CCS22_STEP_BIDS = (5, 3, 2, 6)   # bits 101, 011, 010, 110
+CCS22_STEP_C = 3
+# the transcript lengths of PoKDLog (with its step), PoWFCom, Stage1 and
+# Stage2 (tag, generator, the points, id, step), CCS22's bidder (4c
+# scalars) and evaluator (those and n*c betas) messages at 4x3, and the
+# block boundaries
+SHA256_LENGTHS = (218, 543, 1066, 1846, 4 * 3 * 32, 4 * 3 * 32 + 4 * 3 * 32,
+                  0, 55, 56, 63, 64, 119)
+
+
+def ccs22_step_arrays():
+    out = {}
+
+    def put(prefix, tup):
+        for k, v in tup._asdict().items():
+            out[f"{prefix}.{k}"] = np.asarray(v)
+
+    bids, c = list(CCS22_STEP_BIDS), CCS22_STEP_C
+    n = len(bids)
+    bits = jnp.asarray(seal.bids_to_bits(bids, c))
+    bid_scalars = jnp.asarray(F.ints_to_limbs(bids))
+    key = jax.random.key(SEED + 60)
+    draws = ccs22_draws(key, n, c)
+    for k, v in draws.items():
+        out[f"draw.{k}"] = np.asarray(v)
+    out["bids"], out["c"] = np.asarray(bids), np.asarray(c)
+    evals = (0, n - 1)
+    out["evals"] = np.asarray(evals)
+    pp = ccs22.make_pub_params(CURVE)
+    keys = jax.random.split(key, 4)
+    g1n = jnp.broadcast_to(jnp.asarray(pp.g1), (n, 3, ccs22.LIMBS))
+    for eid in evals:
+        eidt = jnp.asarray(eid, jnp.int32)
+        pub, sec = ccs22._jit_setup(CURVE, keys[1], pp, bid_scalars, c, eidt,
+                                    draws["beta"])
+        pre = ccs22._precompute(CURVE, keys[2:4], pp, pub.X, sec,
+                                draws["beta"])
+        announced, r1, ots = ccs22._jit_scan_steps(CURVE, pre, g1n, bits, eidt)
+        out[f"e{eid}.announced"] = np.asarray(announced)
+        put(f"e{eid}.otr1", r1)
+        put(f"e{eid}.ots", ots)
+    # the streams do not depend on the evaluator (X = g^x)
+    for name, v in zip(("enc0", "enc1", "T2", "M1", "gb", "hb", "z", "bz", "E",
+                        "m0a"), pre):
+        out[f"pre.{name}"] = np.asarray(v)
+    return out
+
+
+def sha256_arrays():
+    from privacy_auction_tpu.ops import sha256 as S
+
+    out = {"lengths": np.asarray(SHA256_LENGTHS)}
+    rng = np.random.default_rng(SEED + 70)
+    run = jax.jit(S.sha256)
+    for length in SHA256_LENGTHS:
+        msgs = rng.integers(0, 256, size=(3, length), dtype=np.uint8)
+        out[f"msg{length}"] = msgs
+        out[f"digest{length}_words"] = np.asarray(run(jnp.asarray(msgs)))
+    return out
+
+
 BUILDERS = {"seal": seal_arrays, "ccs22": ccs22_arrays,
             "ladders64": ladders64_arrays,
             "seal_metered": seal_metered_arrays,
             "ccs22_metered": ccs22_metered_arrays,
             "wire": wire_arrays, "p256": p256_arrays,
-            "seal_step": seal_step_arrays}
+            "seal_step": seal_step_arrays, "ccs22_step": ccs22_step_arrays,
+            "sha256": sha256_arrays}
 # builders that share a file; the others write torch_golden_<name>.npz
 SHARED_FILES = {"seal_metered": "metered", "ccs22_metered": "metered"}
 
