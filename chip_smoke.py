@@ -15,7 +15,9 @@ package, in these phases; any failure raises and the exit code is non-zero:
    that look up tables (the six table-lookup kernels at both of their
    threads a lane, `cuda_ec.GROUPS`) has a select that loads all 16 entries in
    straight-line code with no load predicated, and prints how many selects
-   it checked;
+   it checked; and reads the SHA-256 kernel's loops from its SASS
+   (`cuda_ec.sha256_sass`: the consumer's round loop and instructions a
+   round, its block loop's and the producers' fill loop's bytes);
 2c. the multi-process hub auction (`runtime/party.py`) at 20x2: 20 party
    processes on the card, spawned after this process built the native hub
    (make) and the kernels; bids from the seed with their top bit set
@@ -57,10 +59,12 @@ package, in these phases; any failure raises and the exit code is non-zero:
    hashlib, exactly: messages of 0, 55, 56, 63, 64 and 119 bytes (block
    boundaries), 218, 543, 1066 and 1846 (the PoKDLog, PoWFCom, Stage1 and
    Stage2 transcripts) and 4096 (a CCS22 bidder's message at c = 32), each
-   at 1, 20, 64 and 2053 lanes, and the one-lane evaluator messages of
-   CCS22 20x32, 64x32 and 1024x64 (385, 1,089 and 32,897 blocks; the plain
-   version is not run on the last, one eager chain of some 100M ops); each
-   case timed; then the clocks of a round's critical chain on one thread;
+   at 1, 20, 31, 32, 33, 64 and 2053 lanes (31-33 about the kernel's 32
+   messages a block), 1,024 lanes of 8,192 B (CCS22 1024x64's bidder
+   messages), and the one-lane evaluator messages of CCS22 20x32, 64x32
+   and 1024x64 (385, 1,089 and 32,897 blocks; the plain version is not run
+   on the last, one eager chain of some 100M ops); each case timed; then
+   the clocks of a round's critical chain on one thread;
 4. verified SEAL auctions at 20x32 and 128x8 bidders x bits from a seed
    (the fused driver; the second cut from 128x32 to 128x8 to leave time
    for phases 2c and 6b), whose steps replay one CUDA graph a stage: each
@@ -85,12 +89,15 @@ package, in these phases; any failure raises and the exit code is non-zero:
    find the plaintext maximum, and the four kernels and SHA-256 must rise;
    it prints
    the CLI's per-role report and the launches by kernel and lane count;
-5. CCS22 auctions at 20x32 and 64x32 from a seed with a random evaluator
-   (the fused driver): each must find the plaintext maximum, `mul_comb`,
-   `dual_mul`, `quad_mul` and `sha256` must rise and no other kernel may
-   run (the protocol has no verification phase), and its c steps must be
-   c replays of one CUDA graph (it prints the graph's kernel nodes, its
-   warm-up, capture, instantiation and replay seconds and its memory);
+5. CCS22 auctions at 20x32, 64x32 and 1024x64 (bench.py's CCS22 size,
+   bids of up to 64 bits) from a seed with a random evaluator (the fused
+   driver): each must find the plaintext maximum, `mul_comb`, `dual_mul`,
+   `quad_mul` and `sha256` must rise and no other kernel may run (the
+   protocol has no verification phase), and its c steps must be c replays
+   of one CUDA graph (it prints the graph's kernel nodes, its warm-up,
+   capture, instantiation and replay seconds and its memory, and the
+   device time of each SHA-256 launch of its setup, CUDA events around
+   it, beside the wall);
    the 20x32 auction's steps run once more uncaptured from the same draws,
    with every host synchronization an error, and must give the graph's
    board limb for limb;
@@ -138,7 +145,10 @@ package, in these phases; any failure raises and the exit code is non-zero:
    transcript, a SEAL 20x32 step's), each with its launches by lane count
    on every path, its bound (the larger of its 32-bit integer operations
    over the card's rate, its bytes over the memory rate, and one lane's
-   chain of rounds at the clocks measured in 3b) and ptxas' registers.
+   chain of rounds at the clocks measured in 3b), ptxas' registers, and
+   the kernel's SASS (`cuda_ec.sha256_sass`): the consumer's instructions a
+   round (its rolled loop's over the rounds it runs) and the bytes of its
+   block loop and of the producer's fill loop.
 
 Each log line starts with the seconds since the start.  Prints its total
 time, a `kernels` JSON line, the nvidia-smi line, and last the line
@@ -148,8 +158,10 @@ CUDA device is available or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
+import math
 import pathlib
 import random
 import subprocess
@@ -163,7 +175,9 @@ HUB = (20, 2)            # party processes x bits; c cut from 32 for time
 HUB_KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv",
                "sha256")
 P256_AUCTION = (20, 2)   # bidders x bits; c cut from 32 for time
-CCS22_AUCTIONS = ((20, 32), (64, 32))
+# CCS22 fused: 20x32, 64x32 (the reference's measured size) and 1024x64,
+# bench.py's CCS22 configuration (BASELINE.md's 1024 x 64), on one card
+CCS22_AUCTIONS = ((20, 32), (64, 32), (1024, 64))
 MESH = (20, 8)           # bidders x bits of the mesh phase's auctions
 # (backend, ranks, protocols) of the mesh phase: two ranks on one card
 # need gloo (NCCL refuses two ranks on one device); NCCL runs a mesh of one
@@ -191,12 +205,16 @@ SHA_REPLACES = "privacy_auction_tpu/ops/sha256.py:101"
 HASH = "sha256"
 # SHA-256 (phase 3b): the lane counts and message lengths held to the
 # plain version and hashlib: the block boundaries, the PoKDLog, PoWFCom,
-# Stage1 and Stage2 transcripts, a CCS22 bidder's message at c = 32; and
-# the one-lane evaluator messages of CCS22 20x32, 64x32 and 1024x64 (385,
-# 1,089 and 32,897 blocks), the plain version on the first two only (the
-# third would be one eager chain of some 100M ops)
-SHA_LANES = (1, 20, 64, 2053)
+# Stage1 and Stage2 transcripts, a CCS22 bidder's message at c = 32, at
+# lane counts about a consumer warp's edge (31, 32, 33: the kernel's 32
+# messages a block) and the paths' own; CCS22 1024x64's bidder messages
+# (1,024 lanes of 4 c 32 = 8,192 B); and the one-lane evaluator messages of
+# CCS22 20x32, 64x32 and 1024x64 (385, 1,089 and 32,897 blocks), the plain
+# version on the first two only (the third would be one eager chain of
+# some 100M ops)
+SHA_LANES = (1, 20, 31, 32, 33, 64, 2053)
 SHA_LENGTHS = (0, 55, 56, 63, 64, 119, 218, 543, 1066, 1846, 4 * 32 * 32)
+SHA_WIDE = ((1024, 4 * 64 * 32),)
 SHA_CHAINS = ((20, 32), (64, 32), (1024, 64))
 SHA_PLAIN_CHAINS = ((20, 32), (64, 32))
 REPLACES = {
@@ -625,15 +643,17 @@ def p256_phase(n: int, c: int, device):
 
 
 def sha256_phase(device, lanes=SHA_LANES, lengths=SHA_LENGTHS,
-                 chains=SHA_CHAINS, plain_chains=SHA_PLAIN_CHAINS):
+                 chains=SHA_CHAINS, plain_chains=SHA_PLAIN_CHAINS,
+                 wide=SHA_WIDE):
     """Phase 3b: the SHA-256 kernel against its plain version on `device`
     and against hashlib, exactly, for every message length of `lengths` at
     each lane count of `lanes` (one input set a length, at the most lanes;
-    the kernel on its first l lanes), and for the one-lane messages of
-    `chains` (CCS22's evaluator message at each (n, c)); the plain version
-    runs on those of `plain_chains` only.  Each case is timed after its
-    checked launch: the kernel with CUDA events around 5 launches (which
-    hold the wrapper's host time), the plain version once.  Returns
+    the kernel on its first l lanes), for each (lanes, length) of `wide`,
+    and for the one-lane messages of `chains` (CCS22's evaluator message at
+    each (n, c)); the plain version runs on those of `plain_chains` only.
+    Each case is timed after its checked launch: the kernel with CUDA
+    events around 5 launches (which hold the wrapper's host time), the
+    plain version once.  Returns
     the kernels line's rows (without the launches, which phase 8 adds) and
     the clocks of a round's critical chain on this card."""
     import hashlib
@@ -659,6 +679,7 @@ def sha256_phase(device, lanes=SHA_LANES, lengths=SHA_LENGTHS,
 
     gen = torch.Generator().manual_seed(SEED + 3)
     cases = [(length, lanes) for length in lengths]
+    cases += [(length, (n,)) for n, length in wide]
     cases += [(4 * c * 32 + n * c * 32, (1,)) for n, c in chains]
     rows = []
     for length, counts in cases:
@@ -697,6 +718,39 @@ def sha256_phase(device, lanes=SHA_LANES, lengths=SHA_LENGTHS,
         f"too; a round's critical chain (Sigma1, then the add that makes the "
         f"new e) takes {clocks:.2f} clocks on one thread")
     return rows, clocks
+
+
+@contextlib.contextmanager
+def timed_hashes():
+    """Times each SHA-256 launch made inside: CUDA events recorded around
+    it on the current stream (none while a graph captures).  Yields a list
+    that holds (lanes, bytes, device ms) a launch once the block is left,
+    after a synchronization."""
+    import torch
+
+    from privacy_auction_tpu_torch.ops import cuda_ec
+
+    launch = cuda_ec.sha256
+    events, out = [], []
+
+    def timed(msg):
+        if torch.cuda.is_current_stream_capturing():
+            return launch(msg)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        digest = launch(msg)
+        e1.record()
+        events.append((math.prod(msg.shape[:-1]), msg.shape[-1], e0, e1))
+        return digest
+
+    cuda_ec.sha256 = timed
+    try:
+        yield out
+    finally:
+        cuda_ec.sha256 = launch
+        torch.cuda.synchronize()
+        out.extend((lanes, length, e0.elapsed_time(e1))
+                   for lanes, length, e0, e1 in events)
 
 
 def sha256_bound(lanes: int, length: int, chain_clocks: float) -> dict:
@@ -772,6 +826,13 @@ def main() -> int:
                              f"{bad} missing or not constant-time as compiled")
     log(f"[sass] {len(selects)} selects checked, one in each of "
         f"{len(variants)} kernel variants: all constant-time")
+    sha_sass = cuda_ec.sha256_sass(b)
+    log(f"[sass] sha256_kernel: {sha_sass['instructions']} instructions; the "
+        f"consumer's round loop {sha_sass['round_loop_instructions']} "
+        f"({sha_sass['instructions_a_round']:.2f} a round), its block loop "
+        f"{sha_sass['block_loop_instructions']} ({sha_sass['block_loop_bytes']} "
+        f"B); the producer's fill loop {sha_sass['producer_loop_instructions']} "
+        f"({sha_sass['producer_loop_bytes']} B)")
 
     # ---- 2c. the hub auction: one party process a bidder, all on the card --------
     hub_launches, hub_lanes = hub_phase(*HUB, DEVICE, MemorySampler)
@@ -1105,9 +1166,10 @@ def main() -> int:
         ccs22.pp_or_make(C, dev)          # the CRS: host hash-to-curve, once
         cuda_ec.reset_launches()
         t0 = time.perf_counter()
-        res = ccs22.run_auction(C, bids, c, eval_id,
-                                generator=torch.Generator().manual_seed(SEED + n),
-                                device=dev, phase_times=times)
+        with timed_hashes() as hashes:
+            res = ccs22.run_auction(C, bids, c, eval_id,
+                                    generator=torch.Generator().manual_seed(SEED + n),
+                                    device=dev, phase_times=times)
         ccs22_runs[(n, c)] = (bids, eval_id, res.board)
         wall = time.perf_counter() - t0
         counts = dict(cuda_ec.launches)
@@ -1127,6 +1189,14 @@ def main() -> int:
         log(f"[ccs22 {n}x{c}] launches {json.dumps(counts)}")
         log(f"[ccs22 {n}x{c}] launches by kernel@lanes "
             f"{json.dumps(by_lanes(cuda_ec.launch_lanes))}")
+        hash_ms = sum(ms for _, _, ms in hashes)
+        log(f"[ccs22 {n}x{c}] SHA-256 in its setup (device time, CUDA events "
+            "around each launch): " + ", ".join(
+                f"{lanes} lanes x {length} B {ms:.4f} ms"
+                for lanes, length, ms in hashes)
+            + f"; {hash_ms:.3f} ms in all, {100 * hash_ms / (1e3 * wall):.2f}% "
+            f"of the wall and {100 * hash_ms / (1e3 * times['setup']):.1f}% "
+            "of the setup phase")
         graph = dict(ccs22.last_graph)
         if graph.get("replays") != c:
             raise AssertionError(f"CCS22 {n}x{c}: {graph.get('replays')} "
@@ -1356,7 +1426,11 @@ def main() -> int:
             "max_abs_err": 0, "ms": r["ms"], "plain_ms": r["plain_ms"],
             **bound, "library_ms": None,
             "chain_clocks_a_round": chain_clocks, **sha_res,
-            "threads_a_block": cuda_ec.SHA256_THREADS})
+            "threads_a_block": cuda_ec.SHA256_THREADS,
+            "sass_instructions_a_round": sha_sass["instructions_a_round"],
+            "sass_round_loop_instructions": sha_sass["round_loop_instructions"],
+            "sass_block_loop_bytes": sha_sass["block_loop_bytes"],
+            "sass_producer_loop_bytes": sha_sass["producer_loop_bytes"]})
         log(f"[time] sha256 at {r['lanes']} lanes of {r['bytes']} B: kernel "
             f"{r['ms']:.4f} ms, plain "
             + (f"{r['plain_ms']:.1f} ms" if r["plain_ms"] is not None

@@ -351,10 +351,10 @@ _BRA = re.compile(_PRED + r"BRA\S*\s+(?:`\()?(0x[0-9a-f]+)")
 _WIDTH = {"128": 16, "64": 8, "U8": 1, "S8": 1, "U16": 2, "S16": 2}
 
 
-def _cuobjdump(b: Build, what: str) -> str:
+def _cuobjdump(b: Build, what: str, library: str = "libpa_ec.so") -> str:
     tool = pathlib.Path(_nvcc()).parent / "cuobjdump"
-    return subprocess.run([str(tool), what, str(b.path)], capture_output=True,
-                          text=True, check=True).stdout
+    return subprocess.run([str(tool), what, str(b.path.parent / library)],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def select_sass(b: Build) -> list[dict]:
@@ -412,6 +412,70 @@ def select_sass(b: Build) -> list[dict]:
                            "predicated_loads": 0, "table_bytes": 0,
                            "branches": 0, "ok": False})
     return report
+
+
+# the SHA-256 kernel's consumer runs its rounds in a rolled loop of this
+# many rounds an iteration (csrc/sha256.cu, kGroup)
+SHA256_ROUNDS_A_LOOP = 8
+
+
+def _loops(code: list) -> list[tuple[int, int, list]]:
+    """The loops of one function's (address, instruction) list: the span
+    from each backward branch's target to the branch, and its instructions
+    (NOPs left out)."""
+    spans = []
+    for a, t in code:
+        m = _BRA.match(t)
+        if m and int(m.group(2), 16) < a:
+            start = int(m.group(2), 16)
+            spans.append((start, a, [x for b, x in code if start <= b <= a
+                                     and not x.startswith("NOP")]))
+    return spans
+
+
+def _op(t: str) -> str:
+    return re.sub(_PRED, "", t, count=1).split()[0].split(".")[0]
+
+
+def sha256_sass(b: Build) -> dict:
+    """`parse_sha256_sass` of the build's libpa_sha256.so."""
+    return parse_sha256_sass(_cuobjdump(b, "-sass", "libpa_sha256.so"))
+
+
+def parse_sha256_sass(sass: str) -> dict:
+    """The SHA-256 kernel in `cuobjdump -sass` text of libpa_sha256.so: its
+    instructions; the consumer's round loop (the innermost loop that reads
+    shared memory and holds the rounds' funnel shifts), its instructions and
+    their number over SHA256_ROUNDS_A_LOOP; the block loop around it and
+    the producer's fill loop (the innermost loop that loads device memory
+    and stores to shared memory), each in instructions and bytes (16 an
+    instruction).  Raises if a loop is not found."""
+    code, kernel = [], None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = "sha256_kernel" in line
+        elif kernel and (m := _INSN.search(line)):
+            code.append((int(m.group(1), 16), m.group(2).strip()))
+    loops = [(a, z, body, [_op(t) for t in body])
+             for a, z, body in _loops(code)]
+    rounds = [x for x in loops if "LDS" in x[3]
+              and x[3].count("SHF") >= 6 * SHA256_ROUNDS_A_LOOP]
+    producer = [x for x in loops if "LDG" in x[3] and "STS" in x[3]]
+    if not code or not rounds or not producer:
+        raise RuntimeError("parse_sha256_sass: the kernel's round loop or "
+                           "fill loop is not in the SASS")
+    ra, rz, rbody, _ = min(rounds, key=lambda x: len(x[2]))
+    outer = [x for x in loops
+             if x[0] <= ra and rz <= x[1] and x[1] - x[0] > rz - ra]
+    block = min(outer, key=lambda x: x[1] - x[0]) if outer else None
+    pa, pz, pbody, _ = min(producer, key=lambda x: len(x[2]))
+    return {"instructions": sum(not t.startswith("NOP") for _, t in code),
+            "round_loop_instructions": len(rbody),
+            "instructions_a_round": len(rbody) / SHA256_ROUNDS_A_LOOP,
+            "block_loop_instructions": len(block[2]) if block else None,
+            "block_loop_bytes": block[1] - block[0] + 16 if block else None,
+            "producer_loop_instructions": len(pbody),
+            "producer_loop_bytes": pz - pa + 16}
 
 
 # --------------------------------------------------------------------------
@@ -632,10 +696,13 @@ def pt_add(curve, P, Q, shape=None) -> torch.Tensor:
     return out.reshape(batch + (3, 16))
 
 
-# SHA-256: one thread a message, in blocks of this many threads (a lane's
-# chain of blocks bounds the batches the paths hash, so few threads a block
-# spread them over more SMs)
-SHA256_THREADS = 64
+# SHA-256: the kernel's block of threads (csrc/sha256.cu): a consumer warp,
+# one message a thread, that runs the rounds, and two producer warps that
+# feed it K + W through shared memory, one fill each in turn (one could not
+# keep up on unaligned rows, measured on the H100, PERF.md); 32 messages a
+# block, so the paths' batches (1-2,053 messages) spread over as many SMs
+# as they can
+SHA256_THREADS = 96
 
 
 def sha256(msg: torch.Tensor) -> torch.Tensor:

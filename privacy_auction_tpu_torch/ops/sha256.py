@@ -4,8 +4,10 @@ commitment hash.
 Counterpart of `privacy_auction_tpu/ops/sha256.py`: one hash state per
 batch lane, every lane hashing a message of the same static length.
 `sha256` dispatches by device: a CUDA tensor goes to the hand-written
-kernel (`cuda_ec.sha256`, csrc/sha256.cu: one thread a message, one
-launch, capture-safe), on any curve, since the hash does not depend on
+kernel (`cuda_ec.sha256`, csrc/sha256.cu: 32 messages a block, a warp
+that runs only the rounds fed through shared memory by warps that load
+and expand the message; one launch, capture-safe), on any curve, since
+the hash does not depend on
 it; a CPU tensor takes the plain version, `sha256_plain`.  There is no
 fallback: a failed build or launch raises.
 

@@ -8,12 +8,12 @@ Loads `privacy_auction_tpu_torch` from the checkout at DIR (this one by
 default), so that two commits can be timed on one card in one call: run it
 on each checkout in turns (A, B, B, A).  For each kernel row at the lane
 counts the auctions launch it at (SHAPES), on random points and scalars
-from the seed: the mean ms per launch (CUDA events around `reps` launches
-after one untimed launch), which holds the wrapper's host time where that
-is longer than the kernel's, and the kernel's own device time per launch
-(`torch.profiler`'s CUDA time of the kernel over another `reps` launches,
-the mean over the launches its trace holds: it can drop some), under
-"device_ms".
+from the seed, then SHA-256 at SHA_SHAPES on random bytes: the mean ms per
+launch (CUDA events around `reps` launches after one untimed launch), which
+holds the wrapper's host time where that is longer than the kernel's, and
+the kernel's own device time per launch (`torch.profiler`'s CUDA time of
+the kernel over another `reps` launches, the mean over the launches its
+trace holds: it can drop some), under "device_ms".
 
 With --groups (this checkout's kernels only): the seven group kernels at
 each of LANES with each G they are built for (`cuda_ec.GROUPS`: 8 and 4
@@ -60,6 +60,10 @@ SHAPES = (("mul_comb", 16384), ("dual_mul", 8192), ("quad_mul", 2048),
           ("scalar_mul", 8192), ("base_mul_add", 8192), ("scalar_mul", 8),
           ("base_mul_add", 8), ("pt_add", 8), ("pt_add", 2048),
           ("pt_add", 20480))
+# SHA-256's rows, (lanes, message bytes), after the EC rows: 20 lanes of a
+# Stage1 transcript (SEAL 20x32's step), then the one-lane evaluator
+# messages of CCS22 20x32, 64x32 and 1024x64 (385, 1,089, 32,897 blocks)
+SHA_SHAPES = ((20, 1066), (1, 24576), (1, 69632), (1, 2105344))
 
 
 def main() -> int:
@@ -157,6 +161,13 @@ def main() -> int:
         fn = call(name, n)
         out[f"{name}@{n}"] = time_ms(fn)
         dev_out[f"{name}@{n}"] = device_ms(fn, name)
+    gen = torch.Generator().manual_seed(args.seed)
+    for n, length in SHA_SHAPES:
+        msg = torch.randint(0, 256, (n, length), generator=gen,
+                            dtype=torch.uint8).to(dev)
+        fn = lambda msg=msg: cuda_ec.sha256(msg)  # noqa: E731
+        out[f"sha256@{n}x{length}B"] = time_ms(fn)
+        dev_out[f"sha256@{n}x{length}B"] = device_ms(fn, "sha256")
     groups, groups_dev = {}, {}
     for n in args.groups:
         for name in cuda_ec.GROUP_KERNELS:
