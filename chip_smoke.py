@@ -7,9 +7,10 @@ Drives the port (`privacy_auction_tpu_torch`) and nothing of the JAX
 package, in these phases; any failure raises and the exit code is non-zero:
 
 1. the card's name and power limit (nvidia-smi);
-2. builds the seven EC kernels and the SHA-256 kernel from
-   `privacy_auction_tpu_torch/csrc/` with nvcc (sm_90a, one nvcc a source,
-   started together) into `build/cuda_ec/`, with ptxas' register and spill
+2. builds the seven EC kernels, the projective-to-affine kernel and the
+   SHA-256 kernel from `privacy_auction_tpu_torch/csrc/` with nvcc (sm_90a,
+   one nvcc a source, started together) into `build/cuda_ec/`, with
+   ptxas' register and spill
    report; then reads every table select of every kernel variant in the
    SASS (cuobjdump, next to nvcc): it fails unless each of the 12 variants
    that look up tables (the six table-lookup kernels at both of their
@@ -26,8 +27,9 @@ package, in these phases; any failure raises and the exit code is non-zero:
    plaintext maximum, True), the hub's meters must equal the formula of
    tests/test_native_auction.py exactly, every party must report `cuda`,
    and in every party `mul_comb`, `dual_mul`, `quad_mul`,
-   `base_mul_add_glv` and `sha256` must rise and no other kernel run (counts and
-   devices come back in files beside the hub's socket, not through the
+   `base_mul_add_glv`, `to_affine` and `sha256` must rise and no other
+   kernel run (counts and devices come back in files beside the hub's
+   socket, not through the
    hub); it prints the wall time, the slowest party's time, the meters
    and the parties' launches by kernel and lane count, and every lane
    count the parties launched joins phase 3's parity list;
@@ -55,6 +57,15 @@ package, in these phases; any failure raises and the exit code is non-zero:
    at (`pt_add` at 8, 2048 and 20480, with the validator's special lanes
    P + P, P + (-P), P + infinity and infinity + Q), each lane count once,
    each at both of its threads a lane (8 and 4; `mul_comb` 8 and 2);
+3a. the projective-to-affine kernel (`cuda_ec.to_affine`) against its
+   plain version on the card, exactly, and sampled lanes against the host
+   oracle: at 1, 20, 300, 540, 1280, 2560, 4096 and 4480 lanes (the
+   challenges' widths at SEAL 20x32: a Stage1 and a Stage2 proof, the
+   commitment's and round one's PoKDLogs, the PoWFCom) and at the lane
+   counts the hub's parties and the mesh's ranks launched it at, with the
+   edge lanes infinity (0:1:0), Z = 0 with X and Y set, Z = 1 and Z = p - 1;
+   the kernel timed (CUDA events around 5 launches) beside one plain run
+   at 300, 540 and 1280 lanes;
 3b. the SHA-256 kernel against its plain version on the card and against
    hashlib, exactly: messages of 0, 55, 56, 63, 64 and 119 bytes (block
    boundaries), 218, 543, 1066 and 1846 (the PoKDLog, PoWFCom, Stage1 and
@@ -71,11 +82,13 @@ package, in these phases; any failure raises and the exit code is non-zero:
    must verify and find the plaintext maximum, capture a graph for each
    stage it reaches (Stage2 after a deciding step that is not the last)
    and replay it for every step of the stage, and launch its four EC
-   kernels and SHA-256 at exactly the lane counts the fused driver's phases
-   give them (`seal_lanes`: `quad_mul` and `sha256` twice a step, for the
-   proof and its check, besides the commitment's and round one's), a
-   graph's launches counted at each replay; the 20x32 Stage1 graph must
-   hold fewer than 70,000 kernel nodes (its hashes single launches); it prints the launches by kernel and lane count and, for each
+   kernels, the projective-to-affine kernel and SHA-256 at exactly the
+   lane counts the fused driver's phases give them (`seal_lanes`:
+   `quad_mul`, `to_affine` and `sha256` twice a step, for the proof and its
+   check, besides the commitment's and round one's), a graph's launches
+   counted at each replay; the 20x32 Stage1 graph must hold fewer than
+   8,000 kernel nodes (its hashes and affine conversions single
+   launches); it prints the launches by kernel and lane count and, for each
    graph, its GPU kernels a step (kernel nodes), the seconds of its
    warm-up step, capture, instantiation and replays, and the device
    memory its pool took;
@@ -116,8 +129,9 @@ package, in these phases; any failure raises and the exit code is non-zero:
 6b. NIST P-256 on the card: a fused verified SEAL auction and a fused
    CCS22 auction at 20x2 (c cut from 32 to 2 for the time limit) from the
    seed; each must find the plaintext maximum (SEAL verified), no EC
-   kernel may launch (P-256 runs the generic plain path) and SHA-256 must
-   (the hash does not depend on the curve); it prints the phase times;
+   kernel and no projective-to-affine kernel may launch (P-256 runs the
+   generic plain path) and SHA-256 must (the hash does not depend on the
+   curve); it prints the phase times;
 7. tools/bench_ladder_torch.py at 8192 lanes (64-window ladders beside
    their GLV forms); then the port's tools: tools/run_sweep_torch.py over
    the first 4 pairs of params.txt, in a process of its own that runs
@@ -148,7 +162,11 @@ package, in these phases; any failure raises and the exit code is non-zero:
    chain of rounds at the clocks measured in 3b), ptxas' registers, and
    the kernel's SASS (`cuda_ec.sha256_sass`): the consumer's instructions a
    round (its rolled loop's over the rounds it runs) and the bytes of its
-   block loop and of the producer's fill loop.
+   block loop and of the producer's fill loop; then the projective-to-
+   affine rows, phase 3a's timed lane counts, each with its
+   launches on every path (any lane count), its bound (the larger of its
+   32-bit integer multiplies over the card's rate and its bytes over the
+   memory rate) and ptxas' registers.
 
 Each log line starts with the seconds since the start.  Prints its total
 time, a `kernels` JSON line, the nvidia-smi line, and last the line
@@ -173,7 +191,7 @@ SEED = 20261016
 AUCTIONS = ((20, 32), (128, 8))
 HUB = (20, 2)            # party processes x bits; c cut from 32 for time
 HUB_KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv",
-               "sha256")
+               "to_affine", "sha256")
 P256_AUCTION = (20, 2)   # bidders x bits; c cut from 32 for time
 # CCS22 fused: 20x32, 64x32 (the reference's measured size) and 1024x64,
 # bench.py's CCS22 configuration (BASELINE.md's 1024 x 64), on one card
@@ -203,6 +221,22 @@ SHA_SOURCE = "privacy_auction_tpu_torch/csrc/sha256.cu"
 # a Pallas kernel)
 SHA_REPLACES = "privacy_auction_tpu/ops/sha256.py:101"
 HASH = "sha256"
+AFFINE = "to_affine"
+AFFINE_SOURCE = "privacy_auction_tpu_torch/csrc/ec_affine.cu"
+# the plain inversion that the projective-to-affine kernel is the
+# counterpart of (not a Pallas kernel)
+AFFINE_REPLACES = "privacy_auction_tpu/ops/field.py inv"
+# phase 3a: the lane counts held to the plain version (a lane; the
+# challenges of SEAL 20x32: Stage1 15n, Stage2 27n, round one's and the
+# commitment's PoKDLogs 4nc, the PoWFCom 7nc; and wider), and those timed
+AFFINE_LANES = (1, 20, 300, 540, 1280, 2560, 4096, 4480)
+AFFINE_TIMED = (300, 540, 1280)
+# 32-bit integer multiplies of a lane: z^(p-2) by 255 squarings (36
+# products + 9 in the fold, two results each) and 15 muls (64 + 9), and
+# the two muls by z^-1; bytes of a lane: a point read, two coordinates
+# written (int64 limbs)
+AFFINE_MULS = 255 * 2 * (36 + 9) + 17 * 2 * (64 + 9)
+AFFINE_BYTES = 384 + 256
 # SHA-256 (phase 3b): the lane counts and message lengths held to the
 # plain version and hashlib: the block boundaries, the PoKDLog, PoWFCom,
 # Stage1 and Stage2 transcripts, a CCS22 bidder's message at c = 32, at
@@ -234,7 +268,7 @@ ROWS = tuple(REPLACES)
 SEAL_KERNELS = ROWS[:4]
 # the kernels each auction's path must launch, and no other: the EC kernels
 # and SHA-256 (every proof's challenge, CCS22's commitment hash)
-SEAL_PATH = SEAL_KERNELS + ("sha256",)
+SEAL_PATH = SEAL_KERNELS + ("to_affine", "sha256")
 CCS22_KERNELS = ("mul_comb", "dual_mul", "quad_mul", "sha256")
 SELECT_VARIANTS = 12    # the six table-lookup kernels, each at both G
 RAGGED_LANES = (1, 15, 17, 300, 2053)   # part of a block, ragged blocks
@@ -396,17 +430,24 @@ def seal_lanes(n: int, c: int, deciding) -> dict:
     junction, 16n after it).  SHA-256, a launch a challenge: the
     commitment's PoKDLogs (2nc) and PoWFCom (nc), their check (the same
     two), round one's PoKDLogs and their check (2nc each), then a proof and
-    its check a step (n each)."""
+    its check a step (n each).  The projective-to-affine kernel, a launch
+    a challenge over all its points: the commitment's PoKDLogs (2 points
+    each, 4nc) and PoWFCom (7nc), their check (the same two), round one's
+    PoKDLogs and their check (4nc each), then a proof and its check a step
+    (15n each before the junction, 27n after it)."""
     want: dict = {}
     for key in (("mul_comb", 5 * n * c), ("mul_comb", 4 * n * c),
                 ("quad_mul", 4 * n * c), ("quad_mul", 6 * n * c),
                 ("base_mul_add_glv", 2 * n * c), ("dual_mul", 2 * n * c),
                 (HASH, 2 * n * c), (HASH, n * c), (HASH, 2 * n * c),
-                (HASH, n * c), (HASH, 2 * n * c), (HASH, 2 * n * c)):
+                (HASH, n * c), (HASH, 2 * n * c), (HASH, 2 * n * c),
+                (AFFINE, 4 * n * c), (AFFINE, 7 * n * c), (AFFINE, 4 * n * c),
+                (AFFINE, 7 * n * c), (AFFINE, 4 * n * c), (AFFINE, 4 * n * c)):
         want[key] = want.get(key, 0) + 1
     stage2 = False
     for bit in deciding:
-        for key in (("quad_mul", 16 * n if stage2 else 8 * n), (HASH, n)):
+        for key in (("quad_mul", 16 * n if stage2 else 8 * n), (HASH, n),
+                    (AFFINE, 27 * n if stage2 else 15 * n)):
             want[key] = want.get(key, 0) + 2
         stage2 = stage2 or bool(bit)
     return want
@@ -631,7 +672,7 @@ def p256_phase(n: int, c: int, device):
     log(f"[p256 ccs22 {n}x{c}] evaluator {eval_id}, max_bid={res.max_bid}, wall "
         f"{wall:.3f} s (CRS {crs:.3f} s before it); phases "
         + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()))
-    ec_rows = [k for k in cuda_ec.EC_ROWS if cuda_ec.launches[k]]
+    ec_rows = [k for k in cuda_ec.EC_ROWS + (AFFINE,) if cuda_ec.launches[k]]
     if ec_rows or not cuda_ec.launches[HASH]:
         raise AssertionError(f"P-256: EC kernels {ec_rows} launched, sha256 "
                              f"{cuda_ec.launches[HASH]} times")
@@ -640,6 +681,75 @@ def p256_phase(n: int, c: int, device):
         + json.dumps({f"{k}@{n}": v for (k, n), v in
                       sorted(cuda_ec.launch_lanes.items())}))
     return dict(cuda_ec.launch_lanes)
+
+
+def affine_phase(device, lanes=AFFINE_LANES, timed=AFFINE_TIMED):
+    """Phase 3a: the projective-to-affine kernel against its plain version
+    on `device`, exactly, at each of `lanes` (the first l lanes of one set
+    of points: k*G scaled by a random Z, the edge lanes first), one launch
+    a call, with sampled lanes and the edge lanes against the host oracle
+    (infinity as (0, 0)); the kernel timed at each of `timed` (CUDA events
+    around 5 launches) beside one plain run.  Returns {lanes: {"ms",
+    "plain_ms"}} of the timed lane counts."""
+    import torch
+
+    from privacy_auction_tpu_torch.curves import SECP256K1 as C
+    from privacy_auction_tpu_torch.ops import cuda_ec, ec
+    from privacy_auction_tpu_torch.ops import field as F
+
+    rng = random.Random(SEED + 3)
+    fp, most = C.fp, max(lanes)
+
+    def below(bound):
+        return torch.as_tensor(F.ints_to_limbs(
+            [rng.randrange(1, bound) for _ in range(most)])).to(device)
+
+    P = F.mul(fp, ec.mul_base(C, below(C.host.n)),
+              below(C.host.p).unsqueeze(-2))
+    # the edge lanes: infinity, Z = 0 with X and Y set, Z = 1, Z = p - 1
+    P[0] = ec.infinity(device)
+    P[1, 2] = 0
+    x, y = ec.to_affine_plain(C, P[2:4])
+    P[2] = ec.from_affine(x[0], y[0])
+    P[3] = torch.stack([F.neg(fp, x[1]), F.neg(fp, y[1]),
+                        F.neg(fp, F.const(1, device))])
+    ref = torch.stack(ec.to_affine_plain(C, P), dim=-2)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    reps, out = 5, {}
+    for n in sorted(set(lanes)):
+        before = cuda_ec.launches[AFFINE]
+        got = torch.stack(cuda_ec.to_affine(C, P[:n]), dim=-2)
+        torch.cuda.synchronize()
+        if cuda_ec.launches[AFFINE] != before + 1 or not torch.equal(got, ref[:n]):
+            bad = int((got != ref[:n]).any(-1).any(-1).sum())
+            raise AssertionError(f"to_affine: {bad} of {n} lanes differ from "
+                                 "the plain version, or not one launch")
+        sampled = sorted(set(rng.sample(range(n), min(SAMPLED, n)))
+                         | set(range(min(4, n))))
+        for i in sampled:
+            want = ec.decode_host_point(C, P[i]) or (0, 0)
+            if tuple(F.limbs_to_int(v) for v in got[i]) != want:
+                raise AssertionError(f"to_affine: lane {i} of {n} disagrees "
+                                     "with host_curve")
+        note = ""
+        if n in timed:
+            e0.record()
+            for _ in range(reps):
+                cuda_ec.to_affine(C, P[:n])
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1) / reps
+            e0.record()
+            ec.to_affine_plain(C, P[:n])
+            e1.record()
+            torch.cuda.synchronize()
+            out[n] = {"ms": ms, "plain_ms": e0.elapsed_time(e1)}
+            note = (f"; kernel {ms:.4f} ms, plain "
+                    f"{out[n]['plain_ms']:.1f} ms")
+        log(f"[parity] to_affine: {n} lanes equal the plain version, "
+            f"{len(sampled)} sampled and edge lanes equal host_curve{note}")
+    return out
 
 
 def sha256_phase(device, lanes=SHA_LANES, lengths=SHA_LENGTHS,
@@ -1043,6 +1153,11 @@ def main() -> int:
                                        int((plain - ref).abs().max()))}
     log(f"[parity] {n_cases} cases, each equal to its plain version")
 
+    # ---- 3a. the projective-to-affine kernel against its plain version --------
+    affine_timing = affine_phase(
+        dev, sorted(set(AFFINE_LANES) | {n for k, n in hub_lanes if k == AFFINE}
+                    | {n for k, n in mesh_seen if k == AFFINE}))
+
     # ---- 3b. the SHA-256 kernel against its plain version and hashlib --------
     sha_rows, chain_clocks = sha256_phase(dev)
 
@@ -1071,10 +1186,11 @@ def main() -> int:
         idle = [k for k in SEAL_PATH if counts[k] == 0]
         if idle:
             raise AssertionError(f"SEAL {n}x{c}: kernels {idle} never launched")
-        # the step's hashes are single launches: with the eager SHA-256
-        # (some 3,000 ops a block) the Stage1 graph held 141,739 kernel
-        # nodes at 20x32
-        if (n, c) == AUCTIONS[0] and graphs["stage1"]["kernels"] >= 70000:
+        # the step's hashes and affine conversions are single launches:
+        # with the eager SHA-256 (some 3,000 ops a block) the Stage1 graph
+        # held 141,739 kernel nodes at 20x32, with the plain conversion
+        # (some 17,000 ops each) ~39,000
+        if (n, c) == AUCTIONS[0] and graphs["stage1"]["kernels"] >= 8000:
             raise AssertionError(f"SEAL {n}x{c}: the Stage1 graph has "
                                  f"{graphs['stage1']['kernels']} kernel nodes")
         bits = res.deciding_bits.tolist()
@@ -1437,6 +1553,29 @@ def main() -> int:
                else "not run")
             + f", bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
             f"chain {bound['bound_chain_ms']:.4f} ms)")
+
+    # the projective-to-affine rows: phase 3a's timed lane counts, with the
+    # launches of each path at any lane count
+    for lanes in AFFINE_TIMED:
+        t = affine_timing[lanes]
+        ops_s = lanes * AFFINE_MULS / INT_MUL_RATE
+        bytes_s = lanes * AFFINE_BYTES / HBM_RATE
+
+        def count(lanes_by_key):
+            return sum(v for (k, _), v in lanes_by_key.items() if k == AFFINE)
+        report.append({
+            "name": f"{AFFINE}@{lanes}", "route": "cuda",
+            "source": AFFINE_SOURCE, "replaces": AFFINE_REPLACES,
+            "launches": count(main_lanes), "launches_path": "seal 20x32",
+            **{k: count(v) for k, v in paths.items()},
+            "launches_validator": validator_launches[AFFINE],
+            "lanes": lanes, "max_abs_err": 0, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": 1e3 * max(ops_s, bytes_s),
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "library_ms": None, **resources.get(AFFINE, {})})
+        log(f"[time] to_affine at {lanes} lanes: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.1f} ms, bound "
+            f"{1e3 * max(ops_s, bytes_s):.4f} ms")
 
     log(f"[done] total {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": report}))

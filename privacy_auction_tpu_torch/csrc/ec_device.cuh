@@ -265,10 +265,22 @@ __device__ __forceinline__ Fe fe_carry_reduce(const uint64_t f[9]) {
   return fe_reduce_fast(t, (c >> 32) + f[8]);
 }
 
+// The 16 column sums of a 512-bit product (each < 2^36, the last < 2^32)
+// -> canonical: the high columns fold onto the low ones by 2^256 = 2^32 +
+// 977 (mod p) before any carry runs.
+__device__ __forceinline__ Fe fe_fold_columns(const uint64_t col[16]) {
+  // sum_j col_j 2^(32j) with col_(8+i) 2^(32(8+i)) = col_(8+i) (977 + 2^32) 2^(32i)
+  uint64_t f[9];
+  f[0] = col[0] + col[8] * kC0;
+#pragma unroll
+  for (int i = 1; i < 8; ++i) f[i] = col[i] + col[8 + i] * kC0 + col[7 + i];
+  f[8] = col[15];
+  return fe_carry_reduce(f);
+}
+
 // a * b: the 64 products are independent; column j of the 512-bit product
 // sums the low words of a_i b_{j-i} and the high words of a_i b_{j-1-i}
-// (16 terms at most, < 2^36), and the high columns fold onto the low ones
-// by 2^256 = 2^32 + 977 (mod p) before any carry runs.
+// (16 terms at most, < 2^36).
 __device__ __forceinline__ Fe fe_mul_fast(const Fe& a, const Fe& b) {
   uint64_t col[16];
 #pragma unroll
@@ -282,13 +294,35 @@ __device__ __forceinline__ Fe fe_mul_fast(const Fe& a, const Fe& b) {
       col[i + k + 1] += p >> 32;
     }
   }
-  // sum_j col_j 2^(32j) with col_(8+i) 2^(32(8+i)) = col_(8+i) (977 + 2^32) 2^(32i)
-  uint64_t f[9];
-  f[0] = col[0] + col[8] * kC0;
+  return fe_fold_columns(col);
+}
+
+// a * a from 36 products: the 28 products a_i a_k (i < k) summed by column
+// and doubled, then the 8 squares a_i^2 added.  The columns are those of
+// fe_mul_fast(a, a), which counts each a_i a_k twice, so the result is the
+// same canonical value.
+__device__ __forceinline__ Fe fe_sqr_fast(const Fe& a) {
+  uint64_t col[16];
 #pragma unroll
-  for (int i = 1; i < 8; ++i) f[i] = col[i] + col[8 + i] * kC0 + col[7 + i];
-  f[8] = col[15];
-  return fe_carry_reduce(f);
+  for (int j = 0; j < 16; ++j) col[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int k = i + 1; k < 8; ++k) {
+      const uint64_t p = (uint64_t)a.w[i] * a.w[k];
+      col[i + k] += (uint32_t)p;
+      col[i + k + 1] += p >> 32;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) col[j] <<= 1;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t p = (uint64_t)a.w[i] * a.w[i];
+    col[2 * i] += (uint32_t)p;
+    col[2 * i + 1] += p >> 32;
+  }
+  return fe_fold_columns(col);
 }
 
 // a * k for a small constant k < 2^16.

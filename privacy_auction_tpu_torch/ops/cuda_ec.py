@@ -1,5 +1,6 @@
 """Wrappers of the hand-written CUDA kernels: the EC ladders
-(`csrc/ec_ladders.cu`) and SHA-256 (`csrc/sha256.cu`).
+(`csrc/ec_ladders.cu`), the projective-to-affine conversion
+(`csrc/ec_affine.cu`) and SHA-256 (`csrc/sha256.cu`).
 
 The kernels are built with `nvcc` for sm_90a at first use into
 `build/cuda_ec/` of the checkout, one library a source (`LIBRARIES`, one
@@ -24,6 +25,7 @@ path before it gets here.
 | base_mul_add       | base_mul_add_kernel<G>     | _base_mul_add_kernel (pallas_ec.py:496) |
 | pt_add             | pt_add_kernel<G>           | _pt_add_kernel (pallas_ec.py:399)       |
 | sha256             | sha256_kernel              | none: the JAX package's SHA-256 loop (ops/sha256.py) |
+| to_affine          | to_affine_kernel           | none: the JAX package's plain inversion (ops/field.py inv) |
 
 The seven `<G>` kernels (GROUP_KERNELS) run G threads per lane
 (`csrc/ec_group.cuh`), the six ladders with their window tables in shared
@@ -52,9 +54,11 @@ import torch
 from ..curves import COMB_SIZE, COMB_WINDOWS
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ec_ladders.cu", "ec_device.cuh", "ec_group.cuh", "sha256.cu")
+SOURCES = ("ec_ladders.cu", "ec_device.cuh", "ec_group.cuh", "sha256.cu",
+           "ec_affine.cu")
 # the libraries a build makes, each from one source
-LIBRARIES = {"libpa_ec.so": "ec_ladders.cu", "libpa_sha256.so": "sha256.cu"}
+LIBRARIES = {"libpa_ec.so": "ec_ladders.cu", "libpa_sha256.so": "sha256.cu",
+             "libpa_affine.so": "ec_affine.cu"}
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "cuda_ec"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -69,8 +73,10 @@ KERNELS = ("mul_comb", "dual_mul", "quad_mul", "base_mul_add_glv",
 EC_ROWS = KERNELS + ("dual_mul_64",)
 # the hash kernel's row (it is curve-free: every curve's paths launch it)
 SHA256 = "sha256"
+# the projective-to-affine kernel's row (no Pallas kernel's counterpart)
+AFFINE = "to_affine"
 # Launch counts by row.
-launches = dict.fromkeys(EC_ROWS + (SHA256,), 0)
+launches = dict.fromkeys(EC_ROWS + (SHA256, AFFINE), 0)
 # The same launches by (row, lanes): how wide each launch was.
 launch_lanes: dict[tuple[str, int], int] = {}
 
@@ -141,13 +147,15 @@ def comb_shape(lanes: int, group: int, warps: int | None = None,
 
 class Build:
     """The loaded libraries (`lib` the EC kernels', at `path`; `sha` the
-    SHA-256 kernel's) and what their builds printed; `seconds` is None when
-    an earlier build of the same sources and flags was loaded."""
+    SHA-256 kernel's; `affine` the projective-to-affine kernel's) and what
+    their builds printed; `seconds` is None when an earlier build of the
+    same sources and flags was loaded."""
 
-    def __init__(self, lib: ctypes.CDLL, sha: ctypes.CDLL, path: pathlib.Path,
-                 seconds: float | None, ptxas_log: str):
+    def __init__(self, lib: ctypes.CDLL, sha: ctypes.CDLL, affine: ctypes.CDLL,
+                 path: pathlib.Path, seconds: float | None, ptxas_log: str):
         self.lib = lib
         self.sha = sha
+        self.affine = affine
         self.path = path
         self.seconds = seconds
         self.ptxas_log = ptxas_log
@@ -179,8 +187,8 @@ class Build:
 
 def _row(name: str) -> str | None:
     """The wrapper whose kernel a mangled name holds."""
-    return next((k for k in KERNELS + (SHA256,) if f"{k}_kernel" in name),
-                None)
+    return next((k for k in KERNELS + (SHA256, AFFINE)
+                 if f"{k}_kernel" in name), None)
 
 
 def kernel_key(name: str) -> str | None:
@@ -295,7 +303,11 @@ def build() -> Build:
     sha.pa_sha256.argtypes = [P, P, L, L, I, I, P]
     sha.pa_sha256_chain_clocks.argtypes = [P, I, P, P, P]
     sha.pa_sha256.restype = sha.pa_sha256_chain_clocks.restype = I
-    _build = Build(lib, sha, paths["libpa_ec.so"], seconds, log_path.read_text())
+    affine = ctypes.CDLL(str(paths["libpa_affine.so"]))
+    affine.pa_to_affine.argtypes = [P, P, I, P]
+    affine.pa_to_affine.restype = I
+    _build = Build(lib, sha, affine, paths["libpa_ec.so"], seconds,
+                   log_path.read_text())
     return _build
 
 
@@ -694,6 +706,21 @@ def pt_add(curve, P, Q, shape=None) -> torch.Tensor:
         *(shape or launch_shape("pt_add", n)), _stream(p.device)))
     _count("pt_add", n)
     return out.reshape(batch + (3, 16))
+
+
+def to_affine(curve, P) -> tuple[torch.Tensor, torch.Tensor]:
+    """Projective (..., 3, 16) -> the affine x and y (..., 16) each, one
+    launch: z^-1 by secp256k1's addition chain for p - 2 (csrc/ec_affine.cu);
+    infinity (Z = 0) gives (0, 0), as `ec.to_affine_plain`."""
+    _check_curve("to_affine", curve)
+    (p,), batch = _lanes("to_affine", [P], [(3, 16)])
+    n = p.shape[0]
+    out = torch.empty((n, 2, 16), dtype=torch.int64, device=p.device)
+    _check("to_affine", build().affine.pa_to_affine(
+        _ptr(p), _ptr(out), n, _stream(p.device)))
+    _count(AFFINE, n)
+    xy = out.reshape(batch + (2, 16))
+    return xy[..., 0, :], xy[..., 1, :]
 
 
 # SHA-256: the kernel's block of threads (csrc/sha256.cu): a consumer warp,

@@ -9,21 +9,23 @@ P+Q, P+P, P+(-P) and the identity.
 
 Each of the seven EC kernels -- the four ladders of the protocols' path
 and, for a curve without GLV (reached today through the kernel validator),
-the 64-window ladders and the single add -- has two versions here:
+the 64-window ladders and the single add -- and the projective-to-affine
+conversion of every Fiat-Shamir challenge have two versions here:
 
 * a kernel written by hand in CUDA C++ (`ops/cuda_ec.py`,
-  `csrc/ec_ladders.cu`), launched for CUDA tensors;
+  `csrc/ec_ladders.cu`, `csrc/ec_affine.cu`), launched for CUDA tensors;
 * its plain PyTorch version (`*_plain` below, `add` for `pt_add`), which
   CPU tensors take and which the tests and `chip_smoke.py` hold the kernel
   against.
 
-Both run the same sequence of formulas, and every field value is
-canonical, so they agree bit for bit in projective coordinates.  The
-dispatch is the JAX package's `_pallas_ok` with the device in place of the
-platform: a tensor of a curve the kernels are written for (a = 0 and a
-fold-friendly p: secp256k1) launches the kernel on any device but the
-CPU, and raises where it cannot run; a CPU tensor, and a tensor of any
-other curve (P-256) on any device, takes the plain version.
+A ladder and its plain version run the same sequence of formulas; the
+conversion's kernel reaches the same power of Z by a shorter addition
+chain.  Every field value is canonical, so the two versions agree bit for
+bit.  The dispatch is the JAX package's `_pallas_ok` with the device in
+place of the platform: a tensor of a curve the kernels are written for
+(a = 0 and a fold-friendly p: secp256k1) launches the kernel on any device
+but the CPU, and raises where it cannot run; a CPU tensor, and a tensor of
+any other curve (P-256) on any device, takes the plain version.
 """
 
 from __future__ import annotations
@@ -537,12 +539,22 @@ def base_mul_add(curve: Curve, s, P, t):
 # affine conversion / serialization
 # --------------------------------------------------------------------------
 
-def to_affine(curve: Curve, P):
-    """Projective -> affine (x, y) limb pair; infinity maps to (0, 0)."""
+def to_affine_plain(curve: Curve, P):
+    """Projective -> affine (x, y) limb pair; infinity maps to (0, 0).
+    Plain version of the `to_affine` kernel: one inversion (F.inv)."""
     fp = curve.fp
     zinv = F.inv(fp, P[..., 2, :])
     xy = F.mul(fp, P[..., :2, :], zinv.unsqueeze(-2))
     return xy[..., 0, :], xy[..., 1, :]
+
+
+def to_affine(curve: Curve, P):
+    """Projective -> affine (x, y) limb pair; infinity maps to (0, 0).  On a
+    card (secp256k1) one launch of the `to_affine` kernel, else the plain
+    version."""
+    if _plain(curve, P):
+        return to_affine_plain(curve, P)
+    return cuda_ec.to_affine(curve, P)
 
 
 def serialize_uncompressed(curve: Curve, P):

@@ -8,7 +8,9 @@ Loads `privacy_auction_tpu_torch` from the checkout at DIR (this one by
 default), so that two commits can be timed on one card in one call: run it
 on each checkout in turns (A, B, B, A).  For each kernel row at the lane
 counts the auctions launch it at (SHAPES), on random points and scalars
-from the seed, then SHA-256 at SHA_SHAPES on random bytes: the mean ms per
+from the seed, then SHA-256 at SHA_SHAPES on random bytes, then the
+projective-to-affine kernel at AFFINE_LANES on random points (where the
+checkout has it): the mean ms per
 launch (CUDA events around `reps` launches after one untimed launch), which
 holds the wrapper's host time where that is longer than the kernel's, and
 the kernel's own device time per launch (`torch.profiler`'s CUDA time of
@@ -64,6 +66,9 @@ SHAPES = (("mul_comb", 16384), ("dual_mul", 8192), ("quad_mul", 2048),
 # Stage1 transcript (SEAL 20x32's step), then the one-lane evaluator
 # messages of CCS22 20x32, 64x32 and 1024x64 (385, 1,089, 32,897 blocks)
 SHA_SHAPES = ((20, 1066), (1, 24576), (1, 69632), (1, 2105344))
+# the projective-to-affine rows, last: a Stage1 and a Stage2 challenge of
+# SEAL 20x32 (15n, 27n), and 1,280 lanes
+AFFINE_LANES = (300, 540, 1280)
 
 
 def main() -> int:
@@ -168,6 +173,11 @@ def main() -> int:
         fn = lambda msg=msg: cuda_ec.sha256(msg)  # noqa: E731
         out[f"sha256@{n}x{length}B"] = time_ms(fn)
         dev_out[f"sha256@{n}x{length}B"] = device_ms(fn, "sha256")
+    for n in AFFINE_LANES if hasattr(cuda_ec, "to_affine") else ():
+        P = points(n)
+        fn = lambda P=P: cuda_ec.to_affine(C, P)  # noqa: E731
+        out[f"to_affine@{n}"] = time_ms(fn)
+        dev_out[f"to_affine@{n}"] = device_ms(fn, "to_affine")
     groups, groups_dev = {}, {}
     for n in args.groups:
         for name in cuda_ec.GROUP_KERNELS:
